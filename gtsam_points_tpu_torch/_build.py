@@ -1,0 +1,82 @@
+"""Build the package's CUDA sources into shared libraries and load them.
+
+Each source under `csrc/` has a plain C interface. It is compiled with nvcc
+for sm_90a into `build/kernels/` at the root of the checkout, on first use,
+and loaded with ctypes. The library's file name carries a digest of the
+source and the flags, so an edited source is rebuilt and a stale library is
+never loaded. Nothing is built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+
+# every kernel source of the package, by stem of csrc/<name>.cu
+SOURCES = ("linearize_fused",)
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(verbose: bool = False) -> Dict[str, str]:
+    """Build every source that has no current library. -> compiler output
+    per source ("" when it was already built). `verbose` adds `-Xptxas -v`
+    (registers, spills)."""
+    logs = {name: "" for name in SOURCES}
+    for name in SOURCES:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        logs[name] = proc.stdout
+        os.replace(tmp, out)  # atomic: a reader never sees half a library
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib
