@@ -4,28 +4,47 @@
 Run from the root of a checkout:
 
     python3 chip_smoke.py                     # the check, one card
-    python3 chip_smoke.py --profile out.txt   # also trace three odometry
-                                              # steps; the table goes to out.txt
+    python3 chip_smoke.py --profile out.txt   # also trace three odometry steps
+                                              # and the eight registrations; the
+                                              # tables go to out.txt, out_pyramid.txt
 
 Phases, each of which ends the run with a nonzero exit if it fails:
   1. environment: card name and power limit (nvidia-smi), torch version;
-  2. build: every kernel source with nvcc for sm_90a;
+  2. build: every kernel source with nvcc for sm_90a, all at once;
   3. K3 (csrc/linearize_fused.cu) against its plain PyTorch version on the
      card at N = 1, 1000, 25000, 25001 and with half the mask False;
-  4. the main path at a real size: point-path VGICP scan-to-map odometry with
-     25k-point scans of a 400k-point ring world into the default 262144-voxel
-     map, through init_odometry and make_odometry_stepper; K3's launch count
-     must rise by at least one per LM outer iteration;
+  4. the odometry path at a real size: point-path VGICP scan-to-map odometry
+     with 25k-point scans of a 400k-point ring world into the default
+     262144-voxel map, through init_odometry and make_odometry_stepper; K3's
+     launch count must rise by at least one per LM outer iteration;
   5. five steps through the CUDA path and through the plain path on the card,
      held to a stated bound per pose;
-then one JSON line per kernel and, last, the device line.
+  6. the pyramid's inputs (scan 0's DEFAULT_STAGES pyramid, scan 1 with its
+     covariances) built twice on the card and once on the CPU, where every
+     sum runs in a fixed order; the card's maps and covariances held to the
+     CPU's;
+  7. K1 (csrc/vgicp_unary.cu) against its plain PyTorch version on the card,
+     on the pyramid's own inputs at a pose off the identity and at the
+     identity: N = 1, 1000, 25087, 25088, half the mask False, non-unit
+     weights, with and without source covariances, and the stride-8, 4 and
+     2 stages' sources;
+  8. the pyramid path at a real size: one 25k-point scan registered against
+     a DEFAULT_STAGES pyramid built from the one before it, from eight
+     perturbed initial poses, through build_pyramid and
+     register_scan_pyramid with no host read allowed inside a registration;
+     K1 must launch exactly 6 times per registration, and every pose must lie
+     within a stated bound of the JAX package's pose for the same inputs,
+     from the card-built inputs and, more tightly, from the CPU-built ones;
+then one JSON line for all kernels and, last, the device line.
 
-Nothing of JAX or of the JAX package is imported.
+Every path is driven with the kernels' launch counts set to 0 just before it
+and read just after. Nothing of JAX or of the JAX package is imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -46,6 +65,10 @@ PEAK_FP32_FLOPS = 67e12
 # 78 x 6 = 468, g 12 x 6 = 72, error 6, count 1.
 K3_FLOPS_PER_POINT = 790
 K3_BYTES_PER_POINT = 12 + 12 + 24 + 1  # p, mu, W6 (f32) and the mask byte
+# K1 fp32 operations per point that passes its gate, counted from
+# csrc/vgicp_unary.cu: moment finalize 22, Rᵀ C_t R 75, + C_s 6, inverse and
+# m-scaling 44, r' 21, u 15, skew(p) A 27, h11 18, p x u 9, error 5, 29 sums.
+K1_FLOPS_PER_POINT = 271
 
 REAL_WORLD_N = 400_000
 REAL_SCAN_N = 25_000
@@ -72,6 +95,56 @@ ATE_JAX_MEAN_M = 2.134785
 ATE_JAX_MAX_M = 3.793032
 ATE_SLACK = 1.10
 
+# The pyramid path: scan 1 registered against scan 0's DEFAULT_STAGES pyramid
+# (4 stages, 2 + 2 + 1 + 1 Gauss-Newton iterations), moved back near it by
+# the true relative pose, from se3_exp(RandomState(2).uniform(-0.1, 0.1, 6))
+# perturbations of the identity.
+PYRAMID_INITS = 8
+PYRAMID_SEED = 2
+K1_LAUNCHES_PER_REGISTRATION = 6
+# The JAX package's final poses for the same inputs (its XLA twin on the CPU,
+# top three rows row-major), printed by
+#   JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0
+# which Tier-1 also holds to these numbers for the first init.
+PYRAMID_JAX_POSES = [
+    [0.99917006, 0.04073076, -0.0006776679, -0.89496005, -0.040731773, 0.99916893, -0.0015731537, 0.020680804, 0.00061305065, 0.0015994513, 0.99999857, -0.004568399],
+    [0.9992507, 0.038699575, -0.0006304119, -0.84908485, -0.038700424, 0.9992498, -0.0014163224, 0.018804906, 0.000575125, 0.0014396644, 0.9999988, -0.0038952539],
+    [0.999232, 0.039176706, -0.0006452936, -0.8600359, -0.039177593, 0.9992311, -0.0014339732, 0.019216754, 0.00058865425, 0.0014581577, 0.99999875, -0.0040732482],
+    [0.9992077, 0.03979021, -0.00065723417, -0.8735324, -0.03979113, 0.9992069, -0.0014977285, 0.019804021, 0.0005971318, 0.0015226848, 0.9999986, -0.0042593805],
+    [0.999213, 0.039660767, -0.000653432, -0.870661, -0.039661705, 0.9992121, -0.0014804857, 0.019677097, 0.0005941829, 0.0015052243, 0.99999875, -0.0042005763],
+    [0.999245, 0.038840655, -0.0006279604, -0.85222644, -0.03884151, 0.9992442, -0.0014209866, 0.018924057, 0.00057229644, 0.0014442758, 0.99999875, -0.0039306907],
+    [0.99915254, 0.04115799, -0.00068819954, -0.9046605, -0.04115904, 0.9991512, -0.0015863514, 0.021016514, 0.00062230433, 0.0016133296, 0.99999845, -0.0046566883],
+    [0.99930525, 0.03726546, -0.00060032133, -0.8172236, -0.037266232, 0.99930453, -0.0013429909, 0.0175282, 0.00054988125, 0.0013644266, 0.999999, -0.0036501382],
+]
+# Per-pose bound against those poses when the frames and the pyramid are
+# built on the CPU, where every sum runs in a fixed order as in the JAX
+# package, and copied to the card: what is left is the card's registration
+# (the CPU port lands 8.643e-5 m from JAX).
+PYRAMID_BOUND_M = 1e-3
+PYRAMID_BOUND_RAD = 1e-3
+# The bound when the card builds them, as a user does. The card sums the
+# maps' moments with float atomics (index_add_) in an order that changes from
+# run to run, and the schedule's last stages do not converge along the ring
+# corridor: the order of the sums alone moves the final pose by up to
+# 1.767e-3 m over twelve point orders on the CPU (`python3
+# tests/test_torch_real_size.py --steps 0 --inits 0 --orders 12`). The bound
+# is about 3x that.
+PYRAMID_CARD_BOUND_M = 5e-3
+# The card's maps against the CPU's: keys and counts equal, every other
+# moment within MAP_TOL of its voxel's largest |moment|, the source's
+# covariances within COV_TOL (another order of the sums moves them by up to
+# 1.5e-5 and 3.1e-4 on the CPU, over the same twelve orders)
+MAP_TOL = 1e-4
+COV_TOL = 1e-2
+# The CUDA path against the plain path on the same maps: only K1's summation
+# order differs (2.4e-7 to 6.9e-6 m measured on an H100)
+PYRAMID_PATH_BOUND_M = 1e-4
+PYRAMID_PATH_BOUND_RAD = 1e-4
+# K1 against its plain version, error over max|ref| per field, at the CPU
+# tests' pose (tests/test_torch_unary.py) unless a case says identity
+K1_TOL = 1e-4
+K1_TWIST = [0.01, -0.02, 0.015, 0.1, -0.05, 0.08]
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -97,7 +170,7 @@ def phase_build() -> None:
     log(f"[build] {len(logs)} kernel source(s) in {time.perf_counter() - t0:.3f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(k in line for k in ("registers", "spill", "entry function")) or "error" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -195,6 +268,12 @@ def phase_k3(torch) -> None:
             raise AssertionError(f"K3 disagrees with its plain version at N={n}")
 
 
+def _zero_counts(FL) -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    FL.launches = 0
+    FL.unary_launches = 0
+
+
 def _ring_frames(torch, n_poses: int):
     import numpy as np
 
@@ -213,7 +292,7 @@ def _ring_frames(torch, n_poses: int):
         for a, b in zip(T_true[:-1], T_true[1:])
     ]
     torch.cuda.synchronize()
-    return T_true, frames, priors
+    return T_true, scans, frames, priors
 
 
 def _run_odometry(torch, frames, priors, steps: int):
@@ -249,14 +328,14 @@ def phase_main_path(torch, profile: Optional[str]):
     from gtsam_points_tpu_torch.utils import se3
 
     t0 = time.perf_counter()
-    T_true, frames, priors = _ring_frames(torch, REAL_STEPS + 1)
+    T_true, scans, frames, priors = _ring_frames(torch, REAL_STEPS + 1)
     log(f"[main] {len(frames)} frames of {frames[0].capacity} slots "
         f"({REAL_SCAN_N} points) from a {REAL_WORLD_N}-point ring world, "
         f"preprocessed in {time.perf_counter() - t0:.3f} s")
 
-    FL.launches = 0
+    _zero_counts(FL)
     state, poses, iters, step_ms, merges = _run_odometry(torch, frames, priors, REAL_STEPS)
-    launches = FL.launches
+    launches, k1_launches = FL.launches, FL.unary_launches
 
     if not bool(torch.all(torch.isfinite(poses))):
         raise AssertionError("a pose is not finite")
@@ -269,7 +348,7 @@ def phase_main_path(torch, profile: Optional[str]):
         f"{int(state.vmap.num_voxels)} voxels, {merges} structural merges")
     log(f"[main] LM iterations per step {iters} (total {sum(iters)}); "
         f"K3 launches {launches} ({launches / sum(iters):.3f} per LM iteration, "
-        f"{launches / REAL_STEPS:.3f} per step)")
+        f"{launches / REAL_STEPS:.3f} per step); K1 launches {k1_launches}")
     log(f"[main] step ms median {statistics.median(step_ms):.3f} "
         f"(first {step_ms[0]:.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f})")
     ate_mean, ate_max = float(trans_e.mean()), float(trans_e.max())
@@ -299,43 +378,51 @@ def phase_main_path(torch, profile: Optional[str]):
     if r["rel_err"] > 1e-4:
         raise AssertionError("K3 disagrees with its plain version at the main path's shape")
     r["launches"] = launches
-    return frames, priors, r
+    return scans, frames, priors, r
 
 
-def _profile_steps(torch, frames, priors, path: str) -> None:
-    """The same three steps three times in this process: untimed by any
-    tracer, traced with device activity only (the busy share), and traced
-    with host ops too (launch and host-read counts, the table in `path`)."""
+def _trace(torch, label: str, run, unit: str, key: str, path: str) -> None:
+    """`run()` -> (wall ms, units of work), three times in this process:
+    untraced, traced with device activity only (the busy share), and traced
+    with host ops too (launch and host-read counts; the table goes to
+    `path`). `key` names the kernels whose device time is also given alone."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     kernel_type = torch.autograd.DeviceType.CUDA
-    _, _, iters, plain_ms, _ = _run_odometry(torch, frames, priors, 3)
+    plain_ms, units = run()
+    log(f"[profile] {label} ({units} {unit}s) untraced: wall {plain_ms:.3f} ms")
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, iters_dev, traced_ms, _ = _run_odometry(torch, frames, priors, 3)
+        traced_ms, units = run()
     # kernel rows only; one stream, so their times do not overlap
     kernels = [e for e in prof.key_averages() if e.device_type == kernel_type]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k3_ms = sum(e.self_device_time_total for e in kernels if "linearize_" in e.key) / 1e3
+    key_ms = sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
     n_kernels = sum(e.count for e in kernels)
-    log(f"[profile] 3 steps ({sum(iters)} LM iterations) untraced: wall {sum(plain_ms):.3f} ms "
-        f"{[round(t, 3) for t in plain_ms]}")
-    log(f"[profile] the same 3 steps ({sum(iters_dev)} LM iterations) traced with device activity only: "
-        f"wall {sum(traced_ms):.3f} ms {[round(t, 3) for t in traced_ms]}, device kernel time "
-        f"{device_ms:.3f} ms, busy {100 * device_ms / sum(traced_ms):.2f}% of the traced wall; "
-        f"{n_kernels} kernels ({n_kernels / sum(iters_dev):.1f} per LM iteration), K3 {k3_ms:.3f} ms")
+    log(f"[profile] the same {label} traced with device activity only: wall {traced_ms:.3f} ms, "
+        f"device kernel time {device_ms:.3f} ms, busy {100 * device_ms / traced_ms:.2f}% of the traced "
+        f"wall; {n_kernels} kernels ({n_kernels / units:.1f} per {unit}), '{key}' kernels {key_ms:.3f} ms")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, iters_host, host_ms, _ = _run_odometry(torch, frames, priors, 3)
+        host_ms, units = run()
     events = prof.key_averages()
     n_launch = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     n_sync = sum(e.count for e in events if e.key == "cudaStreamSynchronize")  # host reads
     with open(path, "w") as fh:
         fh.write(events.table(sort_by="self_device_time_total", row_limit=80))
-    log(f"[profile] the same 3 steps ({sum(iters_host)} LM iterations) traced with host ops: "
-        f"wall {sum(host_ms):.3f} ms, {n_launch} kernel launches "
-        f"({n_launch / sum(iters_host):.1f} per LM iteration), {n_sync} host reads; table in {path}")
+    log(f"[profile] the same {label} traced with host ops: wall {host_ms:.3f} ms, {n_launch} kernel "
+        f"launches ({n_launch / units:.1f} per {unit}), {n_sync} host reads; table in {path}")
+
+
+def _profile_steps(torch, frames, priors, path: str) -> None:
+    """Three odometry steps, traced (see _trace)."""
+
+    def run():
+        _, _, iters, step_ms, _ = _run_odometry(torch, frames, priors, 3)
+        return sum(step_ms), sum(iters)
+
+    _trace(torch, "3 odometry steps", run, "LM iteration", "linearize_", path)
 
 
 def phase_plain_vs_cuda(torch, frames, priors) -> None:
@@ -354,9 +441,251 @@ def phase_plain_vs_cuda(torch, frames, priors) -> None:
         raise AssertionError("the CUDA path and the plain path disagree")
 
 
+def _pyramid_inputs(torch, scans, prior, device: str):
+    """Scan 0 as the target and its DEFAULT_STAGES pyramid; scan 1 moved back
+    near it by the true relative pose `prior`, so identity is the truth. Both
+    are built on `device` and returned on the card."""
+    from gtsam_points_tpu_torch.ops.features import estimate_normals_covs_moments
+    from gtsam_points_tpu_torch.registration import build_pyramid
+    from gtsam_points_tpu_torch.types.frame import make_frame, transform_frame
+
+    target, source = (estimate_normals_covs_moments(make_frame(s, device=device)) for s in scans[:2])
+    source = transform_frame(prior.to(device), source)
+    maps = build_pyramid(target, device=device)
+    if device != "cuda":
+        source = source.replace(**{f.name: getattr(source, f.name).cuda()
+                                   for f in dataclasses.fields(source) if getattr(source, f.name) is not None})
+        maps = tuple(type(vm)(*(t.cuda() for t in vm)) for vm in maps)
+    torch.cuda.synchronize()
+    return source, maps
+
+
+def phase_pyramid_inputs(torch, scans, priors) -> dict:
+    """The pyramid's inputs three times: built on the card as a user builds
+    them ("card", the main path's), built on the card once more from the same
+    scans ("again"), and built on the CPU, where every sum runs in a fixed
+    order, then copied to the card ("cpu"). The card's maps must hold the
+    CPU's keys and counts, and their other moments and the source's
+    covariances must agree to MAP_TOL and COV_TOL."""
+    inputs = {k: _pyramid_inputs(torch, scans, priors[0], d)
+              for k, d in (("card", "cuda"), ("again", "cuda"), ("cpu", "cpu"))}
+    (src, maps), (src2, maps2), (csrc, cmaps) = inputs["card"], inputs["again"], inputs["cpu"]
+    differ = int((src.covs != src2.covs).sum()) + sum(int((a.moments != b.moments).sum())
+                                                      for a, b in zip(maps, maps2))
+    log(f"[inputs] two card builds from the same scans: {differ} of "
+        f"{src.covs.numel() + sum(m.moments.numel() for m in maps)} covariance and moment values differ")
+    for i, (a, b) in enumerate(zip(maps, cmaps)):
+        same = torch.equal(a.keys, b.keys) and torch.equal(a.moments[:, 0], b.moments[:, 0])
+        x, y = a.moments[:, 1:10].double(), b.moments[:, 1:10].double()
+        rel = float(((x - y).abs().amax(1) / (y.abs().amax(1) + 1e-30)).max())
+        log(f"[inputs] map {i} (leaf {float(a.leaf)}, {int(a.num_voxels)} voxels), card vs CPU: "
+            f"keys and counts equal {same}, moments {rel:.3e} of each voxel's largest (tol {MAP_TOL})")
+        if not same or rel > MAP_TOL:
+            raise AssertionError(f"the card's map {i} differs from the CPU's")
+    cov_err = float((src.covs - csrc.covs).abs().max())
+    log(f"[inputs] source covariances, card vs CPU: max abs difference {cov_err:.3e} (tol {COV_TOL})")
+    if cov_err > COV_TOL:
+        raise AssertionError("the card's source covariances differ from the CPU's")
+    return inputs
+
+
+def k1_bound_ms(args) -> tuple:
+    """The least time for K1 on these inputs: each input read once (p, momT,
+    found, and C_s and the weights when given, delta), the 29 sums written
+    once; K1_FLOPS_PER_POINT for each point that passes the gate here."""
+    p, momT, found, _, mvp, _, sc, w = args
+    n = p.shape[1]
+    nbytes = (12 + 40 + 1 + (24 if sc is not None else 0) + (4 if w is not None else 0)) * n + 64 + 29 * 4
+    gate = found & (momT[0] >= mvp)
+    if w is not None:
+        gate = gate & (w > 0)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = K1_FLOPS_PER_POINT * int(gate.sum()) / PEAK_FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _device_us_per_call(torch, fn, key: str, calls: int = 100):
+    """Device time of the kernels whose name holds `key`, per call of fn, from
+    a profiler trace of `calls` calls; None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernel_type = torch.autograd.DeviceType.CUDA
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == kernel_type and key in e.key)
+    return total / calls if total > 0 else None
+
+
+def phase_k1(torch, source, maps) -> dict:
+    """K1 against its plain version on the pyramid's own inputs, at the pose
+    of K1_TWIST and at the identity; times at the last stage's shape
+    (N = 25088) and at the first stage's (stride 8)."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.registration.pyramid import DEFAULT_STAGES, _source_planar
+    from gtsam_points_tpu_torch.utils import se3
+
+    delta = se3.se3_exp(torch.tensor(K1_TWIST)).to("cuda", torch.float32).contiguous()
+    eye = torch.eye(4, device="cuda")
+    pts_all, covs_all = _source_planar(source)
+    pts_all = pts_all.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    half = torch.rand(pts_all.shape[1], generator=gen, device="cuda") > 0.5
+    weights = torch.rand(pts_all.shape[1], generator=gen, device="cuda") * 1.5 + 0.5
+
+    def stage_args(stride, vm, n=None, covs=True, half_mask=False, weighted=False, pose=delta):
+        """K1's inputs at one stage: every plane contiguous, as the pyramid makes them."""
+        cut = slice(0, n, stride)
+        pts = pts_all[:, cut].contiguous()
+        momT, found = FL.probe_moments(vm, pts, source.mask[cut], pose)
+        if half_mask:
+            found = found & half[cut]
+        return (pts, momT, found, pose, 1.0, 1e-3, covs_all[:, cut].contiguous() if covs else None,
+                weights[cut].contiguous() if weighted else None)
+
+    strides = [st.stride for st in DEFAULT_STAGES]  # 8, 4, 2, 1
+    cases = [
+        ("N=1", stage_args(1, maps[-1], n=1)),
+        ("N=1000", stage_args(1, maps[-1], n=1000)),
+        ("N=25087", stage_args(1, maps[-1], n=25087)),
+        ("N=25088", stage_args(1, maps[-1])),
+        ("N=25088 identity", stage_args(1, maps[-1], pose=eye)),
+        ("N=25088 eps", stage_args(1, maps[-1], covs=False)),
+        ("N=25088 half-mask", stage_args(1, maps[-1], half_mask=True)),
+        ("N=25088 weights", stage_args(1, maps[-1], weighted=True)),
+        ("N=25088 eps half-mask weights", stage_args(1, maps[-1], covs=False, half_mask=True, weighted=True)),
+        (f"stride {strides[2]} leaf 1", stage_args(strides[2], maps[2])),
+        (f"stride {strides[1]} leaf 1", stage_args(strides[1], maps[1])),
+        (f"stride {strides[0]} leaf 4", stage_args(strides[0], maps[0])),
+        (f"stride {strides[0]} leaf 4 eps", stage_args(strides[0], maps[0], covs=False)),
+    ]
+    strided = (pts_all[:, :: strides[0]],) + cases[-2][1][1:]
+    try:
+        FL.linearize_vgicp_unary_cuda(*strided)
+        raise AssertionError("K1's wrapper took a non-contiguous source")
+    except ValueError:
+        pass
+    for name, args in cases:
+        lin = FL.linearize_vgicp_unary_cuda(*args)
+        ref = FL.linearize_vgicp_unary_plain(*args)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _max_err(torch, lin, ref)
+        log(f"[k1] {name}: valid {int(ref.num_inliers)} max_abs_err={abs_err:.3e} "
+            f"err/max|ref|={rel_err:.3e} (tol {K1_TOL})")
+        if rel_err > K1_TOL or int(lin.num_inliers) != int(ref.num_inliers):
+            raise AssertionError(f"K1 disagrees with its plain version ({name})")
+
+    out = {}
+    for key, (name, args) in (("main", cases[3]), ("stride8", cases[-2])):
+        lin = FL.linearize_vgicp_unary_cuda(*args)
+        abs_err, _ = _max_err(torch, lin, FL.linearize_vgicp_unary_plain(*args))
+        bound, bound_by = k1_bound_ms(args)
+        r = {
+            "n": args[0].shape[1],
+            "max_abs_err": abs_err,
+            "ms": _median_ms(torch, lambda: FL.linearize_vgicp_unary_cuda(*args)),
+            "plain_ms": _median_ms(torch, lambda: FL.linearize_vgicp_unary_plain(*args)),
+            "device_us": _device_us_per_call(torch, lambda: FL.linearize_vgicp_unary_cuda(*args), "unary_"),
+            "bound_ms": bound,
+            "bound_by": bound_by,
+        }
+        device = "not measured" if r["device_us"] is None else f"{r['device_us']:.3f} us"
+        log(f"[k1] {name} (N={r['n']}): kernel {r['ms']:.4f} ms (wrapper, CUDA events), device {device} "
+            f"per launch pair, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.4f} us "
+            f"({r['bound_by']}); no single PyTorch call computes this function")
+        out[key] = r
+    return out
+
+
+def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
+    """The pyramid path: eight registrations on the card-built inputs, each
+    with no host read allowed inside it; K1's count over them and their
+    median time. Their poses against the JAX package's (PYRAMID_CARD_BOUND_M),
+    against the poses from the second card build, and the poses from the
+    CPU-built inputs against the JAX package's (PYRAMID_BOUND_M); the CUDA
+    path against the plain path on those. With `profile`, the eight are
+    traced too (table next to `profile`)."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.registration import register_scan_pyramid
+    from gtsam_points_tpu_torch.utils import se3
+
+    xis = np.random.RandomState(PYRAMID_SEED).uniform(-0.1, 0.1, (PYRAMID_INITS, 6)).astype(np.float32)
+    T0s = se3.se3_exp(torch.from_numpy(xis).cuda())
+    top = torch.tensor(PYRAMID_JAX_POSES, dtype=torch.float32).reshape(-1, 3, 4)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0]).expand(len(top), 1, 4)
+    jax_poses = torch.cat([top, bottom], 1).cuda()
+    torch.cuda.synchronize()
+
+    def register_all(source, maps):
+        poses, reg_ms = [], []
+        for T0 in T0s:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")  # a host read inside raises
+            try:
+                poses.append(register_scan_pyramid(maps, source, T0))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            reg_ms.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(poses), reg_ms
+
+    def gap(label, a, b, bound_m, bound_rad):
+        """Largest per-pose gap between a and b; over a bound fails the phase."""
+        rot, trans = se3.pose_error(a, b)
+        t, r = float(trans.max()), float(rot.max())
+        said = "reported only" if bound_m is None else f"bound {bound_m} m, {bound_rad} rad"
+        log(f"[pyramid] {label}: max per-pose gap {t:.3e} m {r:.3e} rad ({said})")
+        if bound_m is not None and not (t <= bound_m and r <= bound_rad):
+            raise AssertionError(f"pyramid: {label} over its bound")
+
+    source, maps = inputs["card"]
+    _zero_counts(FL)
+    poses, reg_ms = register_all(source, maps)
+    k1_launches, k3_launches = FL.unary_launches, FL.launches
+
+    if not bool(torch.all(torch.isfinite(poses))):
+        raise AssertionError("a pyramid pose is not finite")
+    log(f"[pyramid] {PYRAMID_INITS} registrations of {source.capacity} slots against "
+        f"{len(maps)} maps: K1 launches {k1_launches} "
+        f"({k1_launches / PYRAMID_INITS:.3f} per registration), K3 launches {k3_launches}, "
+        f"host reads inside a registration: 0 (sync debug mode 'error')")
+    log(f"[pyramid] ms per registration median {statistics.median(reg_ms):.3f} "
+        f"(first {reg_ms[0]:.3f}, min {min(reg_ms):.3f}, max {max(reg_ms):.3f})")
+    if k1_launches != K1_LAUNCHES_PER_REGISTRATION * PYRAMID_INITS:
+        raise AssertionError(f"K1 launched {k1_launches} times in {PYRAMID_INITS} registrations")
+    truth_rot, truth_trans = se3.pose_error(torch.eye(4, device="cuda"), poses)
+    log(f"[pyramid] error against the truth max {float(truth_trans.max()):.6f} m "
+        f"{float(truth_rot.max()):.6f} rad")
+
+    gap("card-built inputs vs the JAX package", jax_poses, poses, PYRAMID_CARD_BOUND_M, PYRAMID_BOUND_RAD)
+    poses_again, _ = register_all(*inputs["again"])
+    gap("second card build vs the first", poses, poses_again, None, None)
+    poses_cpu, _ = register_all(*inputs["cpu"])
+    gap("CPU-built inputs vs the JAX package", jax_poses, poses_cpu, PYRAMID_BOUND_M, PYRAMID_BOUND_RAD)
+    with mock.patch.object(FL, "linearize_vgicp_unary", FL.linearize_vgicp_unary_plain):
+        poses_plain, _ = register_all(*inputs["cpu"])
+    gap("CUDA path vs plain path, CPU-built inputs", poses_plain, poses_cpu,
+        PYRAMID_PATH_BOUND_M, PYRAMID_PATH_BOUND_RAD)
+
+    if profile:
+        root, ext = os.path.splitext(profile)
+        _trace(torch, f"{PYRAMID_INITS} pyramid registrations",
+               lambda: (sum(register_all(source, maps)[1]), K1_LAUNCHES_PER_REGISTRATION * PYRAMID_INITS),
+               "Gauss-Newton iteration", "unary_", f"{root}_pyramid{ext}")
+    return {"launches": k1_launches, "median_ms": statistics.median(reg_ms)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", metavar="PATH", help="profile three steps, table to PATH")
+    parser.add_argument("--profile", metavar="PATH",
+                        help="profile three steps and the pyramid, tables to PATH and PATH_pyramid")
     args = parser.parse_args()
 
     import torch
@@ -371,8 +700,11 @@ def main() -> int:
     kind = phase_environment(torch)
     phase_build()
     phase_k3(torch)
-    frames, priors, k3 = phase_main_path(torch, args.profile)
+    scans, frames, priors, k3 = phase_main_path(torch, args.profile)
     phase_plain_vs_cuda(torch, frames, priors)
+    inputs = phase_pyramid_inputs(torch, scans, priors)
+    k1 = phase_k1(torch, *inputs["card"])
+    pyramid = phase_pyramid(torch, inputs, args.profile)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -386,6 +718,18 @@ def main() -> int:
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "vgicp_unary",
+        "route": "cuda",
+        "source": "gtsam_points_tpu_torch/csrc/vgicp_unary.cu",
+        "replaces": "gtsam_points_tpu/ops/pallas_linearize.py:500",
+        "launches": pyramid["launches"],
+        "max_abs_err": k1["main"]["max_abs_err"],
+        "ms": k1["main"]["ms"],
+        "plain_ms": k1["main"]["plain_ms"],
+        "bound_ms": k1["main"]["bound_ms"],
+        "bound_by": k1["main"]["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # every kernel source of the package, by stem of csrc/<name>.cu
-SOURCES = ("linearize_fused",)
+SOURCES = ("linearize_fused", "vgicp_unary")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,8 +51,10 @@ def library_path(name: str) -> Path:
 def build_all(verbose: bool = False) -> Dict[str, str]:
     """Build every source that has no current library. -> compiler output
     per source ("" when it was already built). `verbose` adds `-Xptxas -v`
-    (registers, spills)."""
+    (registers, spills). One nvcc per source, all started together; every
+    one is waited for before a failure is raised."""
     logs = {name: "" for name in SOURCES}
+    running = {}
     for name in SOURCES:
         out = library_path(name)
         if out.exists():
@@ -61,11 +63,17 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        logs[name] = proc.stdout
-        os.replace(tmp, out)  # atomic: a reader never sees half a library
+            failed.append(f"nvcc failed for {name}.cu:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a library
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

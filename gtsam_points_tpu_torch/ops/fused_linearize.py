@@ -1,14 +1,24 @@
-"""Fused point linearization (K3) and the frozen-correspondence error.
+"""Fused linearizations on Hopper kernels, and the probes that feed them.
 
-Port of `linearize_fused` and `error_fused` in
-gtsam_points_tpu/ops/pallas_linearize.py. `linearize_fused` on a CUDA tensor
-launches the hand-written kernel in csrc/linearize_fused.cu (or raises); on a
-CPU tensor it takes `linearize_fused_plain`, the same math in plain PyTorch
-(`planar.linearize_point_system` on `planar.transform`). `error_fused` is
-plain PyTorch on every device, as the reference's is XLA on every backend.
+Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
 
-`launches` counts the kernel launches of `linearize_fused`, so a run can show
-that its main path went through the kernel.
+- K3, `linearize_fused`: the 12x12 point-to-distribution system on a frozen
+  correspondence payload. On a CUDA tensor it launches the hand-written
+  kernel in csrc/linearize_fused.cu (or raises); on a CPU tensor it takes
+  `linearize_fused_plain` (`planar.linearize_point_system` on
+  `planar.transform`). `error_fused` is plain PyTorch on every device, as the
+  reference's is XLA on every backend.
+- K1, `linearize_vgicp_unary`: the unary (source-block-only) VGICP system
+  from raw voxel moments. On a CUDA tensor it launches csrc/vgicp_unary.cu
+  (or raises); on a CPU tensor it takes `linearize_vgicp_unary_plain`, the
+  port of the reference's XLA twin `linearize_vgicp_unary_xla`.
+- `probe_moments`: transform + hash probe -> the raw moment rows K1 reads.
+  The reference selects the matched record with two 0/1 matmuls, a TPU
+  device whose sums hold exactly one nonzero term; here the record picked by
+  `table_probe` is used directly, which gives the same rows.
+
+`launches` and `unary_launches` count the kernel launches of K3 and K1, so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -21,8 +31,11 @@ import torch
 from gtsam_points_tpu_torch import _build
 from gtsam_points_tpu_torch.factors.linearized import Linearized
 from gtsam_points_tpu_torch.ops import planar
+from gtsam_points_tpu_torch.ops import voxel_keys as vk
+from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, table_probe
 
 launches = 0
+unary_launches = 0
 
 _THREADS = 256  # csrc/linearize_fused.cu kThreads
 _OUT = 92  # 78 upper-triangle H entries, 12 g, err, count
@@ -44,6 +57,7 @@ def num_blocks(n: int) -> int:
 
 
 def _library():
+    """K3's launcher, csrc/linearize_fused.cu."""
     lib = _build.load("linearize_fused")
     fn = lib.gpt_linearize_fused
     if fn.argtypes is None:  # first use in this process
@@ -130,3 +144,189 @@ def error_fused(p_src, mu, W6, mask, delta) -> torch.Tensor:
     """Frozen-correspondence error sum rᵀWr; delta [..., 4, 4] -> [...]."""
     pm = planar.transform(delta, p_src)
     return planar.weighted_error(pm - mu, W6, mask)
+
+
+# ---------------------------------------------------------------------------
+# K1: unary VGICP linearize from raw voxel moments
+# ---------------------------------------------------------------------------
+
+_UNARY_THREADS = 256  # csrc/vgicp_unary.cu kThreads
+_UNARY_OUT = 29  # h11 (6), sA (9), A (6), p x u (3), u (3), error, weighted count
+_UNARY_MAX_BLOCKS = 1024
+
+# [6, 6] H_ss = [[h11, sA], [sAᵀ, A]] as positions in the 29 sums
+_UNARY_H = [
+    [0, 1, 2, 6, 7, 8],
+    [1, 3, 4, 9, 10, 11],
+    [2, 4, 5, 12, 13, 14],
+    [6, 9, 12, 15, 16, 17],
+    [7, 10, 13, 16, 18, 19],
+    [8, 11, 14, 17, 19, 20],
+]
+_unary_h_index: Dict[torch.device, torch.Tensor] = {}
+
+
+def unary_num_blocks(n: int) -> int:
+    """K1's grid: one point a thread, at most 1024 blocks. It depends on n
+    alone, so the summation order, and the result, is fixed for a shape."""
+    return max(1, min(-(-n // _UNARY_THREADS), _UNARY_MAX_BLOCKS))
+
+
+def _unary_library():
+    """K1's launcher, csrc/vgicp_unary.cu."""
+    lib = _build.load("vgicp_unary")
+    fn = lib.gpt_vgicp_unary
+    if fn.argtypes is None:  # first use in this process
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_float]
+            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        if lib.gpt_vgicp_unary_out_len() != _UNARY_OUT or lib.gpt_vgicp_unary_threads() != _UNARY_THREADS:
+            raise RuntimeError("csrc/vgicp_unary.cu does not match its wrapper")
+    return fn
+
+
+def _unpack_unary(col: torch.Tensor) -> Linearized:
+    """29 sums (h11, sA, A, p x u, u, error, weighted count) -> Linearized
+    with only the source block; the target blocks are zero."""
+    index = _unary_h_index.get(col.device)
+    if index is None:
+        # an asynchronous copy: a blocking one would sync the stream
+        index = torch.tensor(_UNARY_H, dtype=torch.int64).to(col.device, non_blocking=True)
+        _unary_h_index[col.device] = index
+    z6 = col.new_zeros((6, 6))
+    return Linearized(
+        H_tt=z6,
+        H_ss=col[index],
+        H_ts=z6,
+        b_t=col.new_zeros((6,)),
+        b_s=-col[21:27],
+        error=col[27],
+        num_inliers=col[28].to(torch.int32),
+    )
+
+
+def linearize_vgicp_unary_cuda(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None
+) -> Linearized:
+    """Launch the Hopper kernel. Inputs: p_src [3, N], momT [10, N], found
+    [N] bool, delta [4, 4], src_covs6 [6, N] or None, weights [N] or None, all
+    f32 (but found) and contiguous on one CUDA device."""
+    global unary_launches
+    dev = p_src.device
+    if dev.type != "cuda":
+        raise ValueError(f"linearize_vgicp_unary_cuda needs CUDA tensors, got {dev}")
+    n = p_src.shape[-1]
+    _check("p_src", p_src, (3, n), torch.float32, dev)
+    _check("momT", momT, (10, n), torch.float32, dev)
+    _check("found", found, (n,), torch.bool, dev)
+    _check("delta", delta, (4, 4), torch.float32, dev)
+    if src_covs6 is not None:
+        _check("src_covs6", src_covs6, (6, n), torch.float32, dev)
+    if weights is not None:
+        _check("weights", weights, (n,), torch.float32, dev)
+    fn = _unary_library()
+    blocks = unary_num_blocks(n)
+    partial = torch.empty((blocks, _UNARY_OUT), dtype=torch.float32, device=dev)
+    out = torch.empty((_UNARY_OUT,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            p_src.data_ptr(), momT.data_ptr(), found.data_ptr(),
+            None if weights is None else weights.data_ptr(),
+            None if src_covs6 is None else src_covs6.data_ptr(),
+            delta.data_ptr(), float(min_voxel_points), float(eps),
+            partial.data_ptr(), out.data_ptr(), n, blocks, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"vgicp_unary kernel launch failed with CUDA error {err}")
+    unary_launches += 1
+    return _unpack_unary(out)
+
+
+def linearize_vgicp_unary_plain(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None
+) -> Linearized:
+    """The same function in plain PyTorch, on any device: the reference's
+    XLA twin `linearize_vgicp_unary_xla`. `weights` ([N], non-negative)
+    scale each point's contribution, so `num_inliers` is the weighted count."""
+    cnt = momT[0]
+    okf = (found & (cnt >= min_voxel_points)).to(torch.float32)
+    if weights is not None:
+        okf = okf * weights
+    safe = torch.clamp(cnt, min=1.0)
+    mu = momT[1:4] / safe
+    mu2 = torch.stack(
+        [mu[0] * mu[0], mu[0] * mu[1], mu[0] * mu[2], mu[1] * mu[1], mu[1] * mu[2], mu[2] * mu[2]]
+    )
+    ct6 = momT[4:10] / safe - mu2  # target voxel covariance
+    R = delta[:3, :3]
+    # fused covariance in the source frame: F = Rᵀ C_t R + C_src (or + eps I)
+    F = planar.sym_rotate(R.T, ct6)
+    if src_covs6 is not None:
+        F = F + src_covs6
+    else:
+        F = torch.stack([F[0] + eps, F[1], F[2], F[3] + eps, F[4], F[5] + eps])
+    axx, axy, axz, ayy, ayz, azz = planar.sym_inv(F) * okf[None, :]
+    d = delta[:3, 3, None] - mu
+    rp = p_src + R.T @ d  # r' = Rᵀ r
+    u0 = axx * rp[0] + axy * rp[1] + axz * rp[2]
+    u1 = axy * rp[0] + ayy * rp[1] + ayz * rp[2]
+    u2 = axz * rp[0] + ayz * rp[1] + azz * rp[2]
+    err = u0 * rp[0] + u1 * rp[1] + u2 * rp[2]
+    p0, p1, p2 = p_src[0], p_src[1], p_src[2]
+    # sA = skew(p) A; skew rows (0, -p2, p1), (p2, 0, -p0), (-p1, p0, 0)
+    sA00 = -p2 * axy + p1 * axz
+    sA01 = -p2 * ayy + p1 * ayz
+    sA02 = -p2 * ayz + p1 * azz
+    sA10 = p2 * axx - p0 * axz
+    sA11 = p2 * axy - p0 * ayz
+    sA12 = p2 * axz - p0 * azz
+    sA20 = -p1 * axx + p0 * axy
+    sA21 = -p1 * axy + p0 * ayy
+    sA22 = -p1 * axz + p0 * ayz
+    # h11 = sA skew(p)ᵀ: h11[i][j] = sA[i] . skew_row[j]
+    h1100 = -p2 * sA01 + p1 * sA02
+    h1101 = p2 * sA00 - p0 * sA02
+    h1102 = -p1 * sA00 + p0 * sA01
+    h1111 = p2 * sA10 - p0 * sA12
+    h1112 = -p1 * sA10 + p0 * sA11
+    h1122 = -p1 * sA20 + p0 * sA21
+    bt0 = p1 * u2 - p2 * u1
+    bt1 = p2 * u0 - p0 * u2
+    bt2 = p0 * u1 - p1 * u0
+    stack = torch.stack(
+        [
+            h1100, h1101, h1102, h1111, h1112, h1122,
+            sA00, sA01, sA02, sA10, sA11, sA12, sA20, sA21, sA22,
+            axx, axy, axz, ayy, ayz, azz,
+            bt0, bt1, bt2, u0, u1, u2,
+            err, okf,
+        ]
+    )  # [29, N]
+    return _unpack_unary(torch.sum(stack, dim=1))
+
+
+def linearize_vgicp_unary(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None
+) -> Linearized:
+    """Unary (source-block-only) VGICP linearize from raw moment rows.
+
+    p_src [3, N], momT [10, N] (count, sum p, sum ppᵀ upper of each point's
+    voxel), found [N] bool, delta [4, 4], src_covs6 [6, N] or None (then
+    eps-regularized point-to-distribution), weights [N] or None. -> Linearized
+    with H_ss, b_s, error and num_inliers set and zero target blocks. CUDA
+    tensors go to the kernel, CPU tensors to the plain version."""
+    if p_src.device.type == "cpu":
+        return linearize_vgicp_unary_plain(p_src, momT, found, delta, min_voxel_points, eps, src_covs6, weights)
+    return linearize_vgicp_unary_cuda(p_src, momT, found, delta, min_voxel_points, eps, src_covs6, weights)
+
+
+def probe_moments(vmap: GaussianVoxelMap, p_src: torch.Tensor, mask: torch.Tensor, delta: torch.Tensor):
+    """Transform + hash probe + one bucket-row gather -> (momT [10, N]
+    contiguous, found [N]): the correspondence refresh that feeds K1."""
+    pm = planar.transform(delta, p_src)
+    keys = vk.point_keys_planar(pm, mask, vmap.leaf)
+    _, found, pick, _ = table_probe(vmap.table, keys)
+    return pick[:, 2:12].T.contiguous(), found & mask

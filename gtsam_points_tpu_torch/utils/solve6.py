@@ -2,7 +2,8 @@
 
 Port of gtsam_points_tpu/utils/solve6.py: the Cholesky factorisation and both
 substitutions are written out element by element over any batch prefix (the
-LM solves all K damped systems of its lambda ladder at once). Pivots are
+LM solves all K damped systems of its lambda ladder at once; the pyramid's
+Gauss-Newton step solves one 6x6 system through `solve6`). Pivots are
 clamped as sqrt(max(s, 1e-30)), so a singular system returns finite numbers
 instead of raising, exactly as the reference does.
 """
@@ -43,3 +44,8 @@ def solve_small(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             s = s - L[k][i] * x[k]
         x[i] = s * inv_d[i]
     return torch.stack(x, dim=-1)
+
+
+def solve6(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """6x6 alias of solve_small (the registration Gauss-Newton step)."""
+    return solve_small(H, b)

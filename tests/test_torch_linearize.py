@@ -40,11 +40,14 @@ def _payload(n, seed, mask_frac):
 
 
 def _jax_kernel(monkeypatch, arrays):
+    """The JAX K3 in interpret mode, as one jitted call. Run eagerly, the
+    unpacking's dispatch on the main thread can deadlock against the
+    interpreter's callback thread, which dispatches operations too."""
     from jax.experimental.pallas import tpu as pltpu
 
     monkeypatch.setattr(PL, "_on_tpu", lambda: True)
     with pltpu.force_tpu_interpret_mode():
-        return PL.linearize_fused(*(jnp.asarray(a) for a in arrays))
+        return jax.block_until_ready(jax.jit(PL.linearize_fused)(*(jnp.asarray(a) for a in arrays)))
 
 
 def assert_linearized_close(lin, ref):

@@ -1,20 +1,36 @@
-"""The point path at the real size on the CPU: the JAX package against the port.
+"""The real size on the CPU: the JAX package against the port.
 
-The same configuration as chip_smoke.py's main path: a 400k-point ring world,
-25k-point scans (`ring_scans(seed=1)`, `ring_trajectory(lap=100)`), the
-default `OdometryParams()` (262144-voxel map, leaf 1.0 m, 10 LM iterations of
-5 tries). Each package preprocesses the same numpy scans itself and runs its
-own odometry_step from its own init_odometry, with or without the true
-inter-frame motion as `T_pred_delta`.
+Odometry: the same configuration as chip_smoke.py's odometry phase: a
+400k-point ring world, 25k-point scans (`ring_scans(seed=1)`,
+`ring_trajectory(lap=100)`), the default `OdometryParams()` (262144-voxel
+map, leaf 1.0 m, 10 LM iterations of 5 tries). Each package preprocesses the
+same numpy scans itself and runs its own odometry_step from its own
+init_odometry, with or without the true inter-frame motion as
+`T_pred_delta`. As a test it runs the first three steps with the prior and
+holds every pose of the port to the JAX pose.
 
-As a test it runs the first three steps with the prior and holds every pose of
-the port to the JAX pose. Run as a script for the full report, both prior
-modes over as many steps as chip_smoke.py runs:
+Pyramid: chip_smoke.py's pyramid phase. Scan 0 is the target, scan 1 the
+source, moved back near it by the true relative pose; both carry
+covariances from estimate_normals_covs_moments. Each package builds its own
+DEFAULT_STAGES pyramid and registers the source from eight perturbed initial
+poses, se3_exp(uniform(-0.1, 0.1, 6)) with RandomState(2); the JAX package
+runs its XLA twin. As a test it runs the first init, holds the port's pose to
+the JAX pose, and holds the JAX pose to the one chip_smoke.py keeps.
+
+Run as a script for the full report: both odometry prior modes over as many
+steps as chip_smoke.py runs, and the pyramid over all eight inits, whose JAX
+poses it prints in the form chip_smoke.py keeps them:
 
     JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 24 --out report.json
 
-It prints one line per run (per-pose gap, both ATEs, LM iterations) and
+It prints one line per run (per-pose gap, errors against the truth) and
 writes the whole report as JSON to --out.
+
+Order shift: the port alone builds the target's pyramid from the same
+points in other orders, so only the order of the moment sums changes, as it
+changes on the card from run to run, and registers from the eight inits
+again. The largest pose shift is what chip_smoke.py's bound for card-built
+inputs rests on; as a test it runs two orders.
 """
 
 from __future__ import annotations
@@ -36,18 +52,32 @@ import jax  # noqa: E402
 
 from gtsam_points_tpu.ops.features import estimate_normals_covs_moments as jcovs  # noqa: E402
 from gtsam_points_tpu.pipelines import odometry as jodo  # noqa: E402
+from gtsam_points_tpu.registration import pyramid as jpyr  # noqa: E402
 from gtsam_points_tpu.types.frame import make_frame as jmake  # noqa: E402
+from gtsam_points_tpu.types.frame import transform_frame as jtransform  # noqa: E402
+from gtsam_points_tpu.utils import se3 as jse3  # noqa: E402
 from gtsam_points_tpu.utils.synthetic import ring_scans, ring_trajectory, ring_world  # noqa: E402
 from gtsam_points_tpu_torch.ops.features import estimate_normals_covs_moments as tcovs  # noqa: E402
 from gtsam_points_tpu_torch.pipelines import odometry as todo  # noqa: E402
+from gtsam_points_tpu_torch.registration import pyramid as tpyr  # noqa: E402
 from gtsam_points_tpu_torch.types.frame import make_frame as tmake  # noqa: E402
+from gtsam_points_tpu_torch.types.frame import transform_frame as ttransform  # noqa: E402
 from gtsam_points_tpu_torch.utils import se3 as tse3  # noqa: E402
+
+import chip_smoke  # noqa: E402  (the JAX poses it holds the card to)
 
 WORLD_N = 400_000
 SCAN_N = 25_000
 TEST_STEPS = 3
 POSE_TOL_M = 1e-3
 POSE_TOL_RAD = 1e-3
+PYRAMID_INITS = 8
+PYRAMID_TEST_INITS = 1
+ORDERS = 12
+ORDER_TEST_ORDERS = 2
+# the JAX pose of this run against the one chip_smoke.py keeps: XLA on
+# another CPU may round differently, far below the card's bound
+KEPT_POSE_TOL = 1e-4
 
 
 def _ate(T_true, poses):
@@ -127,6 +157,152 @@ def summary(r: dict) -> str:
     )
 
 
+def pyramid_inputs(n_inits: int):
+    """-> (target scan, source scan, true relative pose, [n_inits, 6] xis)."""
+    world = ring_world(0, WORLD_N)
+    T_true = ring_trajectory(2, lap=100)
+    scans = ring_scans(world, T_true, scan_n=SCAN_N, seed=1)
+    T_rel = (np.linalg.inv(T_true[0]) @ T_true[1]).astype(np.float32)
+    xis = np.random.RandomState(2).uniform(-0.1, 0.1, (PYRAMID_INITS, 6)).astype(np.float32)
+    return scans[0], scans[1], T_rel, xis[:n_inits]
+
+
+def _jax_pyramid(tgt, src, T_rel, xis):
+    target = jax.jit(jcovs)(jmake(tgt))
+    source = jtransform(jax.numpy.asarray(T_rel), jax.jit(jcovs)(jmake(src)))
+    maps = jax.jit(jpyr.build_pyramid)(target)
+    reg = jax.jit(lambda maps, source, T0: jpyr.register_scan_pyramid(maps, source, T0))
+    return [np.asarray(reg(maps, source, jse3.se3_exp(jax.numpy.asarray(xi)))) for xi in xis]
+
+
+def _torch_pyramid(tgt, src, T_rel, xis):
+    target = tcovs(tmake(tgt, device="cpu"))
+    source = ttransform(torch.from_numpy(T_rel), tcovs(tmake(src, device="cpu")))
+    maps = tpyr.build_pyramid(target, device="cpu")
+    T0s = tse3.se3_exp(torch.from_numpy(xis))
+    return [tpyr.register_scan_pyramid(maps, source, T0, device="cpu").numpy() for T0 in T0s]
+
+
+def compare_pyramid(n_inits: int) -> dict:
+    """Register with both packages from the first `n_inits` inits -> per-pose
+    gaps, errors against the truth (identity), the JAX poses, seconds."""
+    tgt, src, T_rel, xis = pyramid_inputs(n_inits)
+    t0 = time.perf_counter()
+    jposes = _jax_pyramid(tgt, src, T_rel, xis)
+    t1 = time.perf_counter()
+    tposes = _torch_pyramid(tgt, src, T_rel, xis)
+    t2 = time.perf_counter()
+    jp, tp = torch.from_numpy(np.stack(jposes)), torch.from_numpy(np.stack(tposes))
+    rot, trans = tse3.pose_error(jp, tp)
+    eye = torch.eye(4).expand(len(xis), 4, 4)
+    jrot, jtrans = tse3.pose_error(eye, jp)
+    trot, ttrans = tse3.pose_error(eye, tp)
+    return {
+        "inits": n_inits,
+        "gap_m": trans.tolist(),
+        "gap_rad": rot.tolist(),
+        "truth_jax_m": jtrans.tolist(),
+        "truth_jax_rad": jrot.tolist(),
+        "truth_torch_m": ttrans.tolist(),
+        "truth_torch_rad": trot.tolist(),
+        "jax_poses": [p[:3].reshape(12).tolist() for p in jposes],
+        "seconds_jax": t1 - t0,
+        "seconds_torch": t2 - t1,
+    }
+
+
+def pyramid_summary(r: dict) -> str:
+    return (
+        f"pyramid, {r['inits']} inits: max per-pose gap {max(r['gap_m']):.6e} m {max(r['gap_rad']):.6e} rad; "
+        f"error against the truth jax max {max(r['truth_jax_m']):.6f} m {max(r['truth_jax_rad']):.6f} rad, "
+        f"port max {max(r['truth_torch_m']):.6f} m {max(r['truth_torch_rad']):.6f} rad; "
+        f"{r['seconds_jax']:.1f} s / {r['seconds_torch']:.1f} s"
+    )
+
+
+def kept_pose_error(r: dict):
+    """Largest (translation, rotation) gap between this run's JAX poses and
+    the ones chip_smoke.py keeps."""
+    kept = np.asarray(chip_smoke.PYRAMID_JAX_POSES[: r["inits"]], np.float32).reshape(-1, 3, 4)
+    new = np.asarray(r["jax_poses"], np.float32).reshape(-1, 3, 4)
+    bottom = np.broadcast_to(np.asarray([0, 0, 0, 1], np.float32), (len(kept), 1, 4))
+    rot, trans = tse3.pose_error(
+        torch.from_numpy(np.concatenate([kept, bottom], 1)), torch.from_numpy(np.concatenate([new, bottom], 1))
+    )
+    return float(trans.max()), float(rot.max())
+
+
+def order_shift(n_orders: int) -> dict:
+    """The port alone, on the CPU: the target scan's points in `n_orders`
+    other orders (RandomState(100 + i) permutations) give the same voxels
+    with their moments summed in another order, as the card's float atomics
+    sum them. -> per order: whether every map kept its keys and counts, the
+    largest moment change over its voxel's largest |moment|, and the largest
+    per-pose shift over the eight inits against the scan's own order; and
+    the largest change of a target point's covariance."""
+    tgt, src, T_rel, xis = pyramid_inputs(PYRAMID_INITS)
+    source = ttransform(torch.from_numpy(T_rel), tcovs(tmake(src, device="cpu")))
+    T0s = tse3.se3_exp(torch.from_numpy(xis))
+
+    def register(points):
+        target = tcovs(tmake(points, device="cpu"))
+        maps = tpyr.build_pyramid(target, device="cpu")
+        poses = torch.stack([tpyr.register_scan_pyramid(maps, source, T0, device="cpu") for T0 in T0s])
+        return target.covs[: len(points)], maps, poses
+
+    def moment_rel(a, b):
+        x, y = a.moments[:, 1:10].double(), b.moments[:, 1:10].double()
+        return float(((x - y).abs().amax(1) / (y.abs().amax(1) + 1e-30)).max())
+
+    covs, maps, poses = register(tgt)
+    r = {"orders": n_orders, "same_keys": [], "moment_rel": [], "cov_abs": [], "shift_m": [], "shift_rad": []}
+    for i in range(n_orders):
+        perm = np.random.RandomState(100 + i).permutation(len(tgt))
+        ocovs, omaps, oposes = register(tgt[perm])
+        r["cov_abs"].append(float((ocovs - covs[torch.from_numpy(perm)]).abs().max()))
+        r["same_keys"].append(all(
+            torch.equal(a.keys, b.keys) and torch.equal(a.moments[:, 0], b.moments[:, 0])
+            for a, b in zip(omaps, maps)
+        ))
+        r["moment_rel"].append(max(moment_rel(a, b) for a, b in zip(omaps, maps)))
+        rot, trans = tse3.pose_error(poses, oposes)
+        r["shift_m"].append(float(trans.max()))
+        r["shift_rad"].append(float(rot.max()))
+    return r
+
+
+def order_summary(r: dict) -> str:
+    return (
+        f"pyramid, target summed in {r['orders']} other orders: keys and counts equal {all(r['same_keys'])}, "
+        f"moments {max(r['moment_rel']):.6e} of each voxel's largest, covariances {max(r['cov_abs']):.6e}; largest pose shift per order (m) "
+        + ", ".join(f"{x:.6e}" for x in r["shift_m"])
+        + f"; max {max(r['shift_m']):.6e} m {max(r['shift_rad']):.6e} rad"
+    )
+
+
+def test_real_size_pyramid_order_shift():
+    """The cause chip_smoke.py's bound for card-built inputs rests on: the
+    order of the moment sums alone moves the pose, and by less than that bound."""
+    torch.set_num_threads(1)
+    r = order_shift(ORDER_TEST_ORDERS)
+    print(order_summary(r))
+    assert all(r["same_keys"])
+    assert max(r["moment_rel"]) < chip_smoke.MAP_TOL, r["moment_rel"]
+    assert max(r["cov_abs"]) < chip_smoke.COV_TOL, r["cov_abs"]
+    assert max(r["shift_m"]) < chip_smoke.PYRAMID_CARD_BOUND_M, r["shift_m"]
+    assert max(r["shift_rad"]) < chip_smoke.PYRAMID_BOUND_RAD, r["shift_rad"]
+
+
+def test_real_size_pyramid_matches_jax():
+    torch.set_num_threads(1)
+    r = compare_pyramid(PYRAMID_TEST_INITS)
+    print(pyramid_summary(r))
+    assert max(r["gap_m"]) < POSE_TOL_M, r["gap_m"]
+    assert max(r["gap_rad"]) < POSE_TOL_RAD, r["gap_rad"]
+    trans, rot = kept_pose_error(r)
+    assert trans < KEPT_POSE_TOL and rot < KEPT_POSE_TOL, (trans, rot)
+
+
 def test_real_size_first_steps_match_jax():
     torch.set_num_threads(1)
     r = compare(TEST_STEPS, with_prior=True)
@@ -139,14 +315,28 @@ def test_real_size_first_steps_match_jax():
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--steps", type=int, default=24)
+    parser.add_argument("--steps", type=int, default=24, help="odometry steps (0: no odometry run)")
+    parser.add_argument("--inits", type=int, default=PYRAMID_INITS, help="pyramid inits (0: no pyramid run)")
+    parser.add_argument("--orders", type=int, default=ORDERS,
+                        help="other point orders of the target for the pyramid's order shift (0: none)")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
     report = []
-    for with_prior in (True, False):
+    for with_prior in (True, False) if args.steps else ():
         r = compare(args.steps, with_prior)
         print(summary(r), flush=True)
+        report.append(r)
+    if args.inits:
+        r = compare_pyramid(args.inits)
+        print(pyramid_summary(r), flush=True)
+        print("JAX poses (top three rows, row-major), as chip_smoke.PYRAMID_JAX_POSES:")
+        for p in r["jax_poses"]:
+            print("    [" + ", ".join(np.format_float_positional(np.float32(x), unique=True) for x in p) + "],")
+        report.append(r)
+    if args.orders:
+        r = order_shift(args.orders)
+        print(order_summary(r), flush=True)
         report.append(r)
     if args.out:
         with open(args.out, "w") as fh:
