@@ -4,13 +4,16 @@
 Run from the root of a checkout:
 
     python3 chip_smoke.py                     # the check, one card
-    python3 chip_smoke.py --profile out.txt   # also trace three odometry steps
-                                              # and the eight registrations; the
-                                              # tables go to out.txt, out_pyramid.txt
+    python3 chip_smoke.py --profile out.txt   # also trace three odometry steps,
+                                              # the eight registrations and 100
+                                              # single-scan linearizes; the tables
+                                              # go to out.txt, out_pyramid.txt,
+                                              # out_scan.txt
 
 Phases, each of which ends the run with a nonzero exit if it fails:
   1. environment: card name and power limit (nvidia-smi), torch version;
-  2. build: every kernel source with nvcc for sm_90a, all at once;
+  2. build: every kernel source with nvcc for sm_90a, all at once, then once
+     more one at a time into a scratch directory, for the two times;
   3. K3 (csrc/linearize_fused.cu) against its plain PyTorch version on the
      card at N = 1, 1000, 25000, 25001 and with half the mask False;
   4. the odometry path at a real size: point-path VGICP scan-to-map odometry
@@ -20,9 +23,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
   5. five steps through the CUDA path and through the plain path on the card,
      held to a stated bound per pose;
   6. the pyramid's inputs (scan 0's DEFAULT_STAGES pyramid, scan 1 with its
-     covariances) built twice on the card and once on the CPU, where every
-     sum runs in a fixed order; the card's maps and covariances held to the
-     CPU's;
+     covariances) built twice on the card, which must agree bit for bit, and
+     once on the CPU; the card's maps and covariances held to the CPU's, and
+     the card's map build from the CPU's frames compared bit for bit with
+     the CPU's maps;
   7. K1 (csrc/vgicp_unary.cu) against its plain PyTorch version on the card,
      on the pyramid's own inputs at a pose off the identity and at the
      identity: N = 1, 1000, 25087, 25088, half the mask False, non-unit
@@ -34,7 +38,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      register_scan_pyramid with no host read allowed inside a registration;
      K1 must launch exactly 6 times per registration, and every pose must lie
      within a stated bound of the JAX package's pose for the same inputs,
-     from the card-built inputs and, more tightly, from the CPU-built ones;
+     built on the card and built on the CPU;
+  9. K4 (csrc/vgicp_moments.cu) against its plain PyTorch version on the
+     card, on scan 1 against scan 0's leaf-1.0 map: N = 1, 1000, 25087 and
+     25088 and half the mask False, with and without source covariances,
+     each at the identity and at a pose off it, and at the pose the card's
+     registration of scan 1 found;
+ 10. the single-scan linearize path at a real size, the race bench.py runs:
+     vgicp_scan_linearize (K4) against lookup_fetch_planar + sym_inv + K3,
+     probe_moments + K1 and vgicp_scan_linearize's plain route, with and
+     without source covariances; the routes' systems held to each other;
 then one JSON line for all kernels and, last, the device line.
 
 Every path is driven with the kernels' launch counts set to 0 just before it
@@ -44,6 +57,7 @@ and read just after. Nothing of JAX or of the JAX package is imported.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -88,9 +102,13 @@ POSE_BOUND_RAD = 1e-3
 # ATE bound with the prior: the JAX package's own ATE over these 24 steps
 # (tests/test_torch_real_size.py on the CPU: mean 2.134785 m, max 3.793032 m;
 # the registration slides a voxel along the corridor at step 4) plus 10%.
-# The port lands within 0.4% of it (CPU 3.806439 m, card 3.79-3.80 m max);
-# the per-pose gap to JAX grows to 2e-2 m by step 24 as sums of another order
-# drift along the corridor, and 10% leaves room for that.
+# The port lands within 0.4% of it (CPU 3.806439 m, card 3.79-3.80 m max).
+# Its per-pose gap to JAX grows to 2.15e-2 m by step 24 on the CPU; the order
+# of the sums alone moves JAX's own poses as far, up to 3.440090e-02 m when
+# each scan's points come in another of four orders (`JAX_PLATFORMS=cpu
+# python3 tests/test_torch_real_size.py --steps 24 --inits 0 --orders 0
+# --odometry-orders 4`), so 3.44e-2 m is the per-pose bound such sums allow
+# along the corridor, and the 10% (0.38 m on the max) leaves room for it.
 ATE_JAX_MEAN_M = 2.134785
 ATE_JAX_MAX_M = 3.793032
 ATE_SLACK = 1.10
@@ -116,20 +134,12 @@ PYRAMID_JAX_POSES = [
     [0.99915254, 0.04115799, -0.00068819954, -0.9046605, -0.04115904, 0.9991512, -0.0015863514, 0.021016514, 0.00062230433, 0.0016133296, 0.99999845, -0.0046566883],
     [0.99930525, 0.03726546, -0.00060032133, -0.8172236, -0.037266232, 0.99930453, -0.0013429909, 0.0175282, 0.00054988125, 0.0013644266, 0.999999, -0.0036501382],
 ]
-# Per-pose bound against those poses when the frames and the pyramid are
-# built on the CPU, where every sum runs in a fixed order as in the JAX
-# package, and copied to the card: what is left is the card's registration
+# Per-pose bound against those poses, for the frames and the pyramid built on
+# the card as a user builds them and for those built on the CPU and copied to
+# the card. Every sum of the map build runs in the same fixed order on both
 # (the CPU port lands 8.643e-5 m from JAX).
 PYRAMID_BOUND_M = 1e-3
 PYRAMID_BOUND_RAD = 1e-3
-# The bound when the card builds them, as a user does. The card sums the
-# maps' moments with float atomics (index_add_) in an order that changes from
-# run to run, and the schedule's last stages do not converge along the ring
-# corridor: the order of the sums alone moves the final pose by up to
-# 1.767e-3 m over twelve point orders on the CPU (`python3
-# tests/test_torch_real_size.py --steps 0 --inits 0 --orders 12`). The bound
-# is about 3x that.
-PYRAMID_CARD_BOUND_M = 5e-3
 # The card's maps against the CPU's: keys and counts equal, every other
 # moment within MAP_TOL of its voxel's largest |moment|, the source's
 # covariances within COV_TOL (another order of the sums moves them by up to
@@ -144,6 +154,14 @@ PYRAMID_PATH_BOUND_RAD = 1e-4
 # tests' pose (tests/test_torch_unary.py) unless a case says identity
 K1_TOL = 1e-4
 K1_TWIST = [0.01, -0.02, 0.015, 0.1, -0.05, 0.08]
+# K4 against its plain version, and the race's routes against each other,
+# error over max|ref| per field; the inlier counts exactly
+K4_TOL = 1e-4
+# K4 fp32 operations per point that passes its gate, counted from
+# csrc/vgicp_moments.cu: K3's 790 on the system, the moment finalize 22, the
+# 3x3 inverse 45, and R C_s Rᵀ + C_t 81 (3 for eps I).
+K4_FLOPS_PER_POINT = {True: K3_FLOPS_PER_POINT + 22 + 45 + 81, False: K3_FLOPS_PER_POINT + 22 + 45 + 3}
+RACE_CALLS = 200
 
 
 def log(msg: str) -> None:
@@ -163,15 +181,33 @@ def phase_environment(torch) -> str:
 
 
 def phase_build() -> None:
+    """Every source built for the run, all nvcc processes started together;
+    then, for the record, every source once more one at a time into a
+    scratch directory inside the build directory."""
+    import tempfile
+    from pathlib import Path
+
     from gtsam_points_tpu_torch import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True)
-    log(f"[build] {len(logs)} kernel source(s) in {time.perf_counter() - t0:.3f} s")
+    together = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "entry function")) or "error" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
+    one_by_one = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for name in _build.SOURCES:
+            t1 = time.perf_counter()
+            proc = _build.nvcc(name, Path(tmp) / f"lib{name}.so")
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            one_by_one[name] = time.perf_counter() - t1
+    log(f"[build] {len(logs)} kernel sources, one nvcc each started together: {together:.3f} s; "
+        f"one at a time: {sum(one_by_one.values()):.3f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in one_by_one.items()) + ")")
 
 
 def _k3_payload(torch, n: int, seed: int, half_mask: bool = False):
@@ -272,6 +308,7 @@ def _zero_counts(FL) -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
     FL.launches = 0
     FL.unary_launches = 0
+    FL.moments_launches = 0
 
 
 def _ring_frames(torch, n_poses: int):
@@ -441,10 +478,15 @@ def phase_plain_vs_cuda(torch, frames, priors) -> None:
         raise AssertionError("the CUDA path and the plain path disagree")
 
 
+def _to_card(frame):
+    return frame.replace(**{f.name: getattr(frame, f.name).cuda()
+                            for f in dataclasses.fields(frame) if getattr(frame, f.name) is not None})
+
+
 def _pyramid_inputs(torch, scans, prior, device: str):
     """Scan 0 as the target and its DEFAULT_STAGES pyramid; scan 1 moved back
     near it by the true relative pose `prior`, so identity is the truth. Both
-    are built on `device` and returned on the card."""
+    are built on `device` and returned on the card, with the target frame."""
     from gtsam_points_tpu_torch.ops.features import estimate_normals_covs_moments
     from gtsam_points_tpu_torch.registration import build_pyramid
     from gtsam_points_tpu_torch.types.frame import make_frame, transform_frame
@@ -453,27 +495,33 @@ def _pyramid_inputs(torch, scans, prior, device: str):
     source = transform_frame(prior.to(device), source)
     maps = build_pyramid(target, device=device)
     if device != "cuda":
-        source = source.replace(**{f.name: getattr(source, f.name).cuda()
-                                   for f in dataclasses.fields(source) if getattr(source, f.name) is not None})
+        target, source = _to_card(target), _to_card(source)
         maps = tuple(type(vm)(*(t.cuda() for t in vm)) for vm in maps)
     torch.cuda.synchronize()
-    return source, maps
+    return source, maps, target
 
 
 def phase_pyramid_inputs(torch, scans, priors) -> dict:
     """The pyramid's inputs three times: built on the card as a user builds
     them ("card", the main path's), built on the card once more from the same
-    scans ("again"), and built on the CPU, where every sum runs in a fixed
-    order, then copied to the card ("cpu"). The card's maps must hold the
+    scans ("again"), and built on the CPU, then copied to the card ("cpu").
+    The two card builds must agree bit for bit. The card's maps must hold the
     CPU's keys and counts, and their other moments and the source's
-    covariances must agree to MAP_TOL and COV_TOL."""
+    covariances must agree to MAP_TOL and COV_TOL. Then the map build alone:
+    the pyramid of the CPU's target frame built on the card, against the
+    CPU's pyramid, bit for bit (reported)."""
+    from gtsam_points_tpu_torch.registration import build_pyramid
+
     inputs = {k: _pyramid_inputs(torch, scans, priors[0], d)
               for k, d in (("card", "cuda"), ("again", "cuda"), ("cpu", "cpu"))}
-    (src, maps), (src2, maps2), (csrc, cmaps) = inputs["card"], inputs["again"], inputs["cpu"]
-    differ = int((src.covs != src2.covs).sum()) + sum(int((a.moments != b.moments).sum())
-                                                      for a, b in zip(maps, maps2))
-    log(f"[inputs] two card builds from the same scans: {differ} of "
-        f"{src.covs.numel() + sum(m.moments.numel() for m in maps)} covariance and moment values differ")
+    (src, maps, tgt), (src2, maps2, tgt2), (csrc, cmaps, ctgt) = inputs["card"], inputs["again"], inputs["cpu"]
+    pairs = [(src.covs, src2.covs), (tgt.covs, tgt2.covs)] + [(a.moments, b.moments) for a, b in zip(maps, maps2)]
+    pairs += [(a.table.view(torch.int32), b.table.view(torch.int32)) for a, b in zip(maps, maps2)]
+    differ = sum(int((a != b).sum()) for a, b in pairs)
+    log(f"[inputs] two card builds from the same scans: {differ} of {sum(a.numel() for a, _ in pairs)} "
+        "covariance, moment and probe-table values differ (must be 0)")
+    if differ:
+        raise AssertionError("two card builds of the same inputs differ")
     for i, (a, b) in enumerate(zip(maps, cmaps)):
         same = torch.equal(a.keys, b.keys) and torch.equal(a.moments[:, 0], b.moments[:, 0])
         x, y = a.moments[:, 1:10].double(), b.moments[:, 1:10].double()
@@ -486,9 +534,12 @@ def phase_pyramid_inputs(torch, scans, priors) -> dict:
     log(f"[inputs] source covariances, card vs CPU: max abs difference {cov_err:.3e} (tol {COV_TOL})")
     if cov_err > COV_TOL:
         raise AssertionError("the card's source covariances differ from the CPU's")
+    for i, (a, b) in enumerate(zip(build_pyramid(ctgt, device="cuda"), cmaps)):
+        bits = torch.equal(a.moments.view(torch.int32), b.moments.view(torch.int32))
+        diff = float((a.moments.double() - b.moments.double()).abs().max())
+        log(f"[inputs] map {i} built on the card from the CPU's target frame vs the CPU's map: moments "
+            f"equal bit for bit {bits}, largest difference {diff:.3e}")
     return inputs
-
-
 def k1_bound_ms(args) -> tuple:
     """The least time for K1 on these inputs: each input read once (p, momT,
     found, and C_s and the weights when given, delta), the 29 sums written
@@ -604,10 +655,10 @@ def phase_k1(torch, source, maps) -> dict:
 def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
     """The pyramid path: eight registrations on the card-built inputs, each
     with no host read allowed inside it; K1's count over them and their
-    median time. Their poses against the JAX package's (PYRAMID_CARD_BOUND_M),
-    against the poses from the second card build, and the poses from the
-    CPU-built inputs against the JAX package's (PYRAMID_BOUND_M); the CUDA
-    path against the plain path on those. With `profile`, the eight are
+    median time. Their poses against the JAX package's and equal, bit for
+    bit, to the poses from the second card build; the poses from the
+    CPU-built inputs against the JAX package's; all at PYRAMID_BOUND_M. The
+    CUDA path against the plain path on those. With `profile`, the eight are
     traced too (table next to `profile`)."""
     import numpy as np
 
@@ -637,15 +688,14 @@ def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
         return torch.stack(poses), reg_ms
 
     def gap(label, a, b, bound_m, bound_rad):
-        """Largest per-pose gap between a and b; over a bound fails the phase."""
+        """Largest per-pose gap between a and b; over the bound fails the phase."""
         rot, trans = se3.pose_error(a, b)
         t, r = float(trans.max()), float(rot.max())
-        said = "reported only" if bound_m is None else f"bound {bound_m} m, {bound_rad} rad"
-        log(f"[pyramid] {label}: max per-pose gap {t:.3e} m {r:.3e} rad ({said})")
-        if bound_m is not None and not (t <= bound_m and r <= bound_rad):
+        log(f"[pyramid] {label}: max per-pose gap {t:.3e} m {r:.3e} rad (bound {bound_m} m, {bound_rad} rad)")
+        if not (t <= bound_m and r <= bound_rad):
             raise AssertionError(f"pyramid: {label} over its bound")
 
-    source, maps = inputs["card"]
+    source, maps, _ = inputs["card"]
     _zero_counts(FL)
     poses, reg_ms = register_all(source, maps)
     k1_launches, k3_launches = FL.unary_launches, FL.launches
@@ -664,13 +714,16 @@ def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
     log(f"[pyramid] error against the truth max {float(truth_trans.max()):.6f} m "
         f"{float(truth_rot.max()):.6f} rad")
 
-    gap("card-built inputs vs the JAX package", jax_poses, poses, PYRAMID_CARD_BOUND_M, PYRAMID_BOUND_RAD)
-    poses_again, _ = register_all(*inputs["again"])
-    gap("second card build vs the first", poses, poses_again, None, None)
-    poses_cpu, _ = register_all(*inputs["cpu"])
+    gap("card-built inputs vs the JAX package", jax_poses, poses, PYRAMID_BOUND_M, PYRAMID_BOUND_RAD)
+    poses_again, _ = register_all(*inputs["again"][:2])
+    same = torch.equal(poses, poses_again)
+    log(f"[pyramid] second card build's poses equal the first's bit for bit: {same}")
+    if not same:
+        raise AssertionError("pyramid: two card builds of the same inputs register to other poses")
+    poses_cpu, _ = register_all(*inputs["cpu"][:2])
     gap("CPU-built inputs vs the JAX package", jax_poses, poses_cpu, PYRAMID_BOUND_M, PYRAMID_BOUND_RAD)
     with mock.patch.object(FL, "linearize_vgicp_unary", FL.linearize_vgicp_unary_plain):
-        poses_plain, _ = register_all(*inputs["cpu"])
+        poses_plain, _ = register_all(*inputs["cpu"][:2])
     gap("CUDA path vs plain path, CPU-built inputs", poses_plain, poses_cpu,
         PYRAMID_PATH_BOUND_M, PYRAMID_PATH_BOUND_RAD)
 
@@ -679,13 +732,194 @@ def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
         _trace(torch, f"{PYRAMID_INITS} pyramid registrations",
                lambda: (sum(register_all(source, maps)[1]), K1_LAUNCHES_PER_REGISTRATION * PYRAMID_INITS),
                "Gauss-Newton iteration", "unary_", f"{root}_pyramid{ext}")
-    return {"launches": k1_launches, "median_ms": statistics.median(reg_ms)}
+    return {"launches": k1_launches, "median_ms": statistics.median(reg_ms), "poses": poses}
+
+
+def k4_bound_ms(args) -> tuple:
+    """The least time for K4 on these inputs: each input read once (p, momT,
+    found, C_s when given, delta), the 92 sums written once;
+    K4_FLOPS_PER_POINT for each point that passes the gate here."""
+    p, momT, found, _, mvp, _, sc = args
+    n = p.shape[1]
+    nbytes = (12 + 40 + 1 + (24 if sc is not None else 0)) * n + 64 + 92 * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    gate = int((found & (momT[0] >= mvp)).sum())
+    ops_ms = K4_FLOPS_PER_POINT[sc is not None] * gate / PEAK_FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _check_close(torch, label: str, lin, ref, tol: float) -> float:
+    """Error over max|ref| of every field, and equal inlier counts, or raise."""
+    abs_err, rel_err = _max_err(torch, lin, ref)
+    same_count = int(lin.num_inliers) == int(ref.num_inliers)
+    log(f"{label}: valid {int(ref.num_inliers)} max_abs_err={abs_err:.3e} err/max|ref|={rel_err:.3e} "
+        f"(tol {tol}), inlier counts equal {same_count}")
+    if rel_err > tol or not same_count:
+        raise AssertionError(f"{label} disagree")
+    return abs_err
+
+
+def phase_k4(torch, source, vmap, T_reg) -> dict:
+    """K4 against its plain version on scan 1 (`source`, moved back by the
+    true prior) against scan 0's leaf-1.0 map, at the identity, at
+    K1_TWIST's pose and at `T_reg`, the card's registration of scan 1; times
+    at N = 25088 with source covariances at K1_TWIST's pose."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.registration.pyramid import _source_planar
+    from gtsam_points_tpu_torch.utils import se3
+
+    pts_all, covs_all = (t.contiguous() for t in _source_planar(source))
+    n_all = pts_all.shape[1]
+    half = torch.rand(n_all, generator=torch.Generator(device="cuda").manual_seed(4), device="cuda") > 0.5
+    poses = {
+        "identity": torch.eye(4, device="cuda"),
+        "twist": se3.se3_exp(torch.tensor(K1_TWIST)).to("cuda", torch.float32).contiguous(),
+    }
+
+    def k4_args(pose, n=None, covs=True, half_mask=False):
+        """K4's inputs as vgicp_scan_linearize makes them, min_voxel_points 1."""
+        pts = pts_all[:, :n].contiguous()
+        momT, found = FL.probe_moments(vmap, pts, source.mask[:n], pose)
+        if half_mask:
+            found = found & half[:n]
+        return (pts, momT, found, pose, 1.0, 1e-3, covs_all[:, :n].contiguous() if covs else None)
+
+    cases = []
+    for pname, pose in poses.items():
+        for covs in (True, False):
+            mode = "covs" if covs else "eps"
+            cases += [(f"N={n} {mode} {pname}", k4_args(pose, n, covs)) for n in (1, 1000, n_all - 1, n_all)]
+            cases.append((f"N={n_all} {mode} half-mask {pname}", k4_args(pose, covs=covs, half_mask=True)))
+    T_reg = T_reg.contiguous()
+    cases += [(f"N={n_all} {'covs' if c else 'eps'} registered pose", k4_args(T_reg, covs=c)) for c in (True, False)]
+    strided = (pts_all[:, ::8],) + k4_args(poses["twist"], covs=False)[1:]
+    try:
+        FL.linearize_vgicp_moments_cuda(*strided)
+        raise AssertionError("K4's wrapper took a non-contiguous source")
+    except ValueError:
+        pass
+    for name, args in cases:
+        lin = FL.linearize_vgicp_moments_cuda(*args)
+        ref = FL.linearize_vgicp_moments_plain(*args)
+        torch.cuda.synchronize()
+        _check_close(torch, f"[k4] {name}", lin, ref, K4_TOL)
+
+    args = k4_args(poses["twist"])
+    lin = FL.linearize_vgicp_moments_cuda(*args)
+    abs_err, _ = _max_err(torch, lin, FL.linearize_vgicp_moments_plain(*args))
+    bound, bound_by = k4_bound_ms(args)
+    r = {
+        "n": n_all,
+        "max_abs_err": abs_err,
+        "ms": _median_ms(torch, lambda: FL.linearize_vgicp_moments_cuda(*args)),
+        "plain_ms": _median_ms(torch, lambda: FL.linearize_vgicp_moments_plain(*args)),
+        "device_us": _device_us_per_call(torch, lambda: FL.linearize_vgicp_moments_cuda(*args), "moments_"),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    }
+    device = "not measured" if r["device_us"] is None else f"{r['device_us']:.3f} us"
+    log(f"[k4] N={n_all} covs twist: kernel {r['ms']:.4f} ms (wrapper, CUDA events), device {device} per "
+        f"launch pair, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); "
+        "no single PyTorch call computes this function")
+    return r
+
+
+SourceBlock = collections.namedtuple("SourceBlock", "H_ss b_s error num_inliers")
+
+
+def _source_block(lin):
+    return SourceBlock(lin.H_ss, lin.b_s, lin.error, lin.num_inliers)
+
+
+def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
+    """The single-scan linearize path, raced as bench.py races it, at
+    K1_TWIST's pose, with and without source covariances: each route's median
+    wrapper ms over RACE_CALLS calls (CUDA events) and device us per call
+    from a profiler trace, all kernels and the route's own pair. The routes'
+    systems are held to each other: K4's full system to the K3 route's, and
+    its source block to K1's (C_t + R C_s Rᵀ = R (Rᵀ C_t R + C_s) Rᵀ).
+    K4's launches over the race are counted and returned. With `profile`,
+    100 calls of vgicp_scan_linearize with covariances are traced too (table
+    next to `profile`)."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.ops import planar
+    from gtsam_points_tpu_torch.ops.voxelmap import lookup_fetch_planar
+    from gtsam_points_tpu_torch.registration.pyramid import _source_planar
+    from gtsam_points_tpu_torch.utils import se3
+
+    pts, covs_all = (t.contiguous() for t in _source_planar(source))
+    mask = source.mask
+    T = se3.se3_exp(torch.tensor(K1_TWIST)).to("cuda", torch.float32).contiguous()
+    eps_eye6 = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], device="cuda")[:, None] * 1e-3
+    calls = {"moments_fused": 0}
+
+    def routes(covs6):
+        def moments_fused():
+            calls["moments_fused"] += 1
+            return FL.vgicp_scan_linearize(vmap, pts, mask, T, 1.0, src_covs6=covs6)
+
+        def planar_fused():
+            pm = planar.transform(T, pts)
+            found, _, mu, C6 = lookup_fetch_planar(vmap, pm, mask)
+            fused = C6 + (planar.sym_rotate(T[:3, :3], covs6) if covs6 is not None else eps_eye6)
+            return FL.linearize_fused(pts, mu, planar.sym_inv(fused), found, T)
+
+        def unary_cuda():
+            momT, found = FL.probe_moments(vmap, pts, mask, T)
+            return FL.linearize_vgicp_unary(pts, momT, found, T, 1.0, src_covs6=covs6)
+
+        def moments_plain():
+            momT, found = FL.probe_moments(vmap, pts, mask, T)
+            return FL.linearize_vgicp_moments_plain(pts, momT, found, T, 1.0, 1e-3, covs6)
+
+        return {"moments_fused": (moments_fused, "moments_"), "planar_fused": (planar_fused, "linearize_"),
+                "unary_cuda": (unary_cuda, "unary_"), "moments_plain": (moments_plain, None)}
+
+    out = {}
+    _zero_counts(FL)
+    for covs6 in (covs_all, None):
+        mode = "covs" if covs6 is not None else "eps"
+        race = routes(covs6)
+        k4, k3, k1 = (race[k][0]() for k in ("moments_fused", "planar_fused", "unary_cuda"))
+        torch.cuda.synchronize()
+        _check_close(torch, f"[race] {mode}: K4 vs the K3 route, full system", k4, k3, K4_TOL)
+        _check_close(torch, f"[race] {mode}: K4 vs K1, source block", _source_block(k4), _source_block(k1), K4_TOL)
+        for name, (fn, key) in race.items():
+            ms = _median_ms(torch, fn, reps=RACE_CALLS)
+            all_us = _device_us_per_call(torch, fn, "")
+            own_us = None if key is None else _device_us_per_call(torch, fn, key)
+            out[f"{name} {mode}"] = {"ms": ms, "device_us": all_us, "own_us": own_us}
+            own = "" if key is None else (f", its '{key}' pair {own_us:.3f} us" if own_us is not None
+                                          else ", its pair not measured")
+            device = "not measured" if all_us is None else f"{all_us:.3f} us"
+            log(f"[race] {mode} {name}: {ms:.4f} ms median of {RACE_CALLS} calls (wrapper, CUDA events), "
+                f"device {device} per call (all kernels){own}")
+    if profile:
+        root, ext = os.path.splitext(profile)
+        scan_linearize = routes(covs_all)["moments_fused"][0]
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                scan_linearize()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, 100
+
+        _trace(torch, "100 single-scan linearizes", run, "call", "moments_", f"{root}_scan{ext}")
+    launches = FL.moments_launches
+    log(f"[race] K4 launches {launches} for {calls['moments_fused']} vgicp_scan_linearize calls; "
+        f"K3 {FL.launches}, K1 {FL.unary_launches}")
+    if launches != calls["moments_fused"] or launches == 0:
+        raise AssertionError(f"K4 launched {launches} times for {calls['moments_fused']} calls")
+    return {"launches": launches, "race": out}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
-                        help="profile three steps and the pyramid, tables to PATH and PATH_pyramid")
+                        help="profile three steps, the pyramid and the single-scan linearize, "
+                             "tables to PATH, PATH_pyramid and PATH_scan")
     args = parser.parse_args()
 
     import torch
@@ -703,8 +937,11 @@ def main() -> int:
     scans, frames, priors, k3 = phase_main_path(torch, args.profile)
     phase_plain_vs_cuda(torch, frames, priors)
     inputs = phase_pyramid_inputs(torch, scans, priors)
-    k1 = phase_k1(torch, *inputs["card"])
+    k1 = phase_k1(torch, *inputs["card"][:2])
     pyramid = phase_pyramid(torch, inputs, args.profile)
+    source, maps, _ = inputs["card"]
+    k4 = phase_k4(torch, source, maps[-1], pyramid["poses"][0])
+    race = phase_race(torch, source, maps[-1], args.profile)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -730,6 +967,18 @@ def main() -> int:
         "plain_ms": k1["main"]["plain_ms"],
         "bound_ms": k1["main"]["bound_ms"],
         "bound_by": k1["main"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "vgicp_moments",
+        "route": "cuda",
+        "source": "gtsam_points_tpu_torch/csrc/vgicp_moments.cu",
+        "replaces": "gtsam_points_tpu/ops/pallas_linearize.py:275",
+        "launches": race["launches"],
+        "max_abs_err": k4["max_abs_err"],
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # every kernel source of the package, by stem of csrc/<name>.cu
-SOURCES = ("linearize_fused", "vgicp_unary")
+SOURCES = ("linearize_fused", "vgicp_unary", "vgicp_moments")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,6 +48,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def nvcc(name: str, out: Path, verbose: bool = False) -> subprocess.Popen:
+    """Start nvcc on csrc/<name>.cu into `out`; stdout and stderr joined.
+    `verbose` adds `-Xptxas -v` (registers, spills)."""
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", str(out),
+           str(CSRC_DIR / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build_all(verbose: bool = False) -> Dict[str, str]:
     """Build every source that has no current library. -> compiler output
     per source ("" when it was already built). `verbose` adds `-Xptxas -v`
@@ -61,10 +69,7 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out)
+        running[name] = (nvcc(name, tmp, verbose), tmp, out)
     failed = []
     for name, (proc, tmp, out) in running.items():
         logs[name] = proc.communicate()[0]

@@ -12,13 +12,20 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
   from raw voxel moments. On a CUDA tensor it launches csrc/vgicp_unary.cu
   (or raises); on a CPU tensor it takes `linearize_vgicp_unary_plain`, the
   port of the reference's XLA twin `linearize_vgicp_unary_xla`.
-- `probe_moments`: transform + hash probe -> the raw moment rows K1 reads.
+- K4, `linearize_vgicp_moments`: the full 12x12 VGICP system from raw voxel
+  moments (finalize, fused covariance in the target frame, 3x3 inverse,
+  Jacobians and reduction in one pass). On a CUDA tensor it launches
+  csrc/vgicp_moments.cu (or raises); on a CPU tensor it takes
+  `linearize_vgicp_moments_plain`, the port of `linearize_vgicp_moments_xla`.
+  `vgicp_scan_linearize` is the single-scan entry point: probe, then K4.
+- `probe_moments`: transform + hash probe -> the raw moment rows K1 and K4 read.
   The reference selects the matched record with two 0/1 matmuls, a TPU
   device whose sums hold exactly one nonzero term; here the record picked by
   `table_probe` is used directly, which gives the same rows.
 
-`launches` and `unary_launches` count the kernel launches of K3 and K1, so a
-run can show that its main path went through the kernels.
+`launches`, `unary_launches` and `moments_launches` count the kernel launches
+of K3, K1 and K4, so a run can show that its main path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, table_probe
 
 launches = 0
 unary_launches = 0
+moments_launches = 0
 
 _THREADS = 256  # csrc/linearize_fused.cu kThreads
 _OUT = 92  # 78 upper-triangle H entries, 12 g, err, count
@@ -245,22 +253,27 @@ def linearize_vgicp_unary_cuda(
     return _unpack_unary(out)
 
 
+def _voxel_stats(momT: torch.Tensor):
+    """Raw moment rows [10, N] -> (mean [3, N], covariance [6, N]) of each
+    point's voxel: sum p / n and sum ppᵀ / n - mu muᵀ."""
+    safe = torch.clamp(momT[0], min=1.0)
+    mu = momT[1:4] / safe
+    mu2 = torch.stack(
+        [mu[0] * mu[0], mu[0] * mu[1], mu[0] * mu[2], mu[1] * mu[1], mu[1] * mu[2], mu[2] * mu[2]]
+    )
+    return mu, momT[4:10] / safe - mu2
+
+
 def linearize_vgicp_unary_plain(
     p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None
 ) -> Linearized:
     """The same function in plain PyTorch, on any device: the reference's
     XLA twin `linearize_vgicp_unary_xla`. `weights` ([N], non-negative)
     scale each point's contribution, so `num_inliers` is the weighted count."""
-    cnt = momT[0]
-    okf = (found & (cnt >= min_voxel_points)).to(torch.float32)
+    okf = (found & (momT[0] >= min_voxel_points)).to(torch.float32)
     if weights is not None:
         okf = okf * weights
-    safe = torch.clamp(cnt, min=1.0)
-    mu = momT[1:4] / safe
-    mu2 = torch.stack(
-        [mu[0] * mu[0], mu[0] * mu[1], mu[0] * mu[2], mu[1] * mu[1], mu[1] * mu[2], mu[2] * mu[2]]
-    )
-    ct6 = momT[4:10] / safe - mu2  # target voxel covariance
+    mu, ct6 = _voxel_stats(momT)
     R = delta[:3, :3]
     # fused covariance in the source frame: F = Rᵀ C_t R + C_src (or + eps I)
     F = planar.sym_rotate(R.T, ct6)
@@ -330,3 +343,102 @@ def probe_moments(vmap: GaussianVoxelMap, p_src: torch.Tensor, mask: torch.Tenso
     keys = vk.point_keys_planar(pm, mask, vmap.leaf)
     _, found, pick, _ = table_probe(vmap.table, keys)
     return pick[:, 2:12].T.contiguous(), found & mask
+
+
+# ---------------------------------------------------------------------------
+# K4: full 12x12 VGICP linearize from raw voxel moments
+# ---------------------------------------------------------------------------
+
+
+def _moments_library():
+    """K4's launcher, csrc/vgicp_moments.cu."""
+    lib = _build.load("vgicp_moments")
+    fn = lib.gpt_vgicp_moments
+    if fn.argtypes is None:  # first use in this process
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float]
+            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        if lib.gpt_vgicp_moments_out_len() != _OUT or lib.gpt_vgicp_moments_threads() != _UNARY_THREADS:
+            raise RuntimeError("csrc/vgicp_moments.cu does not match its wrapper")
+    return fn
+
+
+def linearize_vgicp_moments_cuda(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """Launch the Hopper kernel. Inputs: p_src [3, N], momT [10, N], found
+    [N] bool, delta [4, 4], src_covs6 [6, N] or None, all f32 (but found) and
+    contiguous on one CUDA device."""
+    global moments_launches
+    dev = p_src.device
+    if dev.type != "cuda":
+        raise ValueError(f"linearize_vgicp_moments_cuda needs CUDA tensors, got {dev}")
+    n = p_src.shape[-1]
+    _check("p_src", p_src, (3, n), torch.float32, dev)
+    _check("momT", momT, (10, n), torch.float32, dev)
+    _check("found", found, (n,), torch.bool, dev)
+    _check("delta", delta, (4, 4), torch.float32, dev)
+    if src_covs6 is not None:
+        _check("src_covs6", src_covs6, (6, n), torch.float32, dev)
+    fn = _moments_library()
+    blocks = unary_num_blocks(n)  # K1's grid: one point a thread
+    partial = torch.empty((blocks, _OUT), dtype=torch.float32, device=dev)
+    out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            p_src.data_ptr(), momT.data_ptr(), found.data_ptr(),
+            None if src_covs6 is None else src_covs6.data_ptr(),
+            delta.data_ptr(), float(min_voxel_points), float(eps),
+            partial.data_ptr(), out.data_ptr(), n, blocks, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"vgicp_moments kernel launch failed with CUDA error {err}")
+    moments_launches += 1
+    return _unpack(out)
+
+
+def linearize_vgicp_moments_plain(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """The same function in plain PyTorch, on any device: the reference's
+    XLA twin `linearize_vgicp_moments_xla`. The fused covariance is
+    C_t + R C_s Rᵀ in the target frame, or C_t + eps I."""
+    ok = found & (momT[0] >= min_voxel_points)
+    mu, C6 = _voxel_stats(momT)
+    if src_covs6 is not None:
+        fused = C6 + planar.sym_rotate(delta[:3, :3], src_covs6)
+    else:
+        eye6 = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=C6.dtype, device=C6.device) * eps
+        fused = C6 + eye6[:, None]
+    W6 = planar.sym_inv(fused)
+    pm = planar.transform(delta, p_src)
+    return planar.linearize_point_system(p_src, pm, pm - mu, W6, ok, delta[:3, :3])
+
+
+def linearize_vgicp_moments(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """Fused VGICP linearize from raw moment rows.
+
+    p_src [3, N], momT [10, N] (count, sum p, sum ppᵀ upper of each point's
+    voxel), found [N] bool, delta [4, 4], src_covs6 [6, N] or None (then
+    eps-regularized point-to-distribution). -> the full Linearized (target
+    and source blocks). CUDA tensors go to the kernel, CPU tensors to the
+    plain version."""
+    if p_src.device.type == "cpu":
+        return linearize_vgicp_moments_plain(p_src, momT, found, delta, min_voxel_points, eps, src_covs6)
+    return linearize_vgicp_moments_cuda(p_src, momT, found, delta, min_voxel_points, eps, src_covs6)
+
+
+def vgicp_scan_linearize(
+    vmap: GaussianVoxelMap, p_src, mask, delta, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """One-call scan-to-map VGICP linearize: transform, hash probe and the
+    matched record's raw moments (`probe_moments`), then K4. p_src [3, N]
+    and src_covs6 [6, N] contiguous on CUDA (the kernel refuses a strided
+    view), mask [N] bool, delta [4, 4]; runs where the tensors lie."""
+    momT, found = probe_moments(vmap, p_src, mask, delta)
+    return linearize_vgicp_moments(p_src, momT, found, delta, min_voxel_points, eps, src_covs6)

@@ -175,6 +175,21 @@ def _is_new_run(sorted_keys: torch.Tensor) -> torch.Tensor:
     return is_new
 
 
+def _run_sum(rows: torch.Tensor, slot: torch.Tensor, size: int) -> torch.Tensor:
+    """Sum rows [M, L] into [size, L] by slot [M], which must be sorted; rows
+    whose slot is `size` or more (the dropped sentinel, sorted last) are not
+    read. Each run of equal slots is summed from its first row to its last,
+    on every device: the order in which `index_add_` sums on the CPU and the
+    reference's sorted scatter-add sums, where `index_add_` on CUDA uses float
+    atomics in no fixed order. Slots with no row get zeros."""
+    bounds = torch.arange(size + 1, dtype=slot.dtype, device=slot.device)
+    offsets = torch.searchsorted(slot, bounds)
+    # unsafe: the offsets are sorted and end within M by construction, and
+    # the checks (which also want them to end at M) would read them back to
+    # the host
+    return torch.segment_reduce(rows, "sum", offsets=offsets, axis=0, unsafe=True)
+
+
 def build_probe_table(keys: torch.Tensor, moments: torch.Tensor) -> torch.Tensor:
     """Claim bucket slots for every valid key (first 8 per bucket in stable
     sorted order; overflow dropped) and write complete records."""
@@ -263,7 +278,7 @@ def _scan_moments(frame: Frame, leaf, capacity: int):
     slot = torch.where(valid, torch.clamp(seg, max=capacity), capacity)
 
     rows = point_moments(frame.points, frame.covs, frame.mask.to(torch.float32), frame.intensities)[order]
-    mom = rows.new_zeros((capacity + 1, _MOM_LANES)).index_add_(0, slot, rows)[:capacity]
+    mom = _run_sum(rows, slot, capacity)
     out_keys = torch.full((capacity + 1,), vk.INVALID_KEY, dtype=torch.int32, device=keys.device)
     out_keys[torch.where(is_new, torch.clamp(seg, max=capacity), capacity)] = skeys
     return out_keys[:capacity], mom
@@ -297,7 +312,7 @@ def insert_frame(vmap: GaussianVoxelMap, frame: Frame) -> GaussianVoxelMap:
     n2 = keys.shape[0]
     slot = torch.where(valid, seg, n2)
 
-    m_mom = mom.new_zeros((n2 + 1, _MOM_LANES)).index_add_(0, slot, mom)[:n2]
+    m_mom = _run_sum(mom, slot, n2)
     m_seen = torch.zeros((n2 + 1,), dtype=torch.int32, device=dev).scatter_reduce_(
         0, slot, torch.where(valid, seen, 0), "amax", include_self=True
     )[:n2]
@@ -368,7 +383,7 @@ def insert_rows_incremental(
     seg = torch.cumsum(is_new.to(_I64), dim=0) - 1
     num_unique = torch.clamp(seg[-1] + 1, min=0)
     uslot = torch.where(valid, torch.clamp(seg, max=ucap), ucap)
-    umom = rows.new_zeros((ucap + 1, _MOM_LANES)).index_add_(0, uslot, rows[order])[:ucap]
+    umom = _run_sum(rows[order], uslot, ucap)
     ukeys = torch.full((ucap + 1,), vk.INVALID_KEY, dtype=torch.int32, device=dev)
     ukeys[torch.where(is_new, torch.clamp(seg, max=ucap), ucap)] = skeys
     ukeys = ukeys[:ucap]
@@ -389,6 +404,7 @@ def insert_rows_incremental(
     touched = found | new_mask
     slot_all = torch.where(found, row.to(_I64), dest)
     moments = torch.cat([vmap.moments, vmap.moments.new_zeros((1, _MOM_LANES))])
+    # one row per slot but the dropped sentinel `cap`, so no two atomics meet
     moments.index_add_(0, slot_all, torch.where(touched[:, None], umom, 0.0))
     moments = moments[:cap]
     last_seen = torch.cat([vmap.last_seen, vmap.last_seen.new_zeros((1,))])
