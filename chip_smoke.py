@@ -5,10 +5,11 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py                     # the check, one card
     python3 chip_smoke.py --profile out.txt   # also trace three odometry steps,
-                                              # the eight registrations and 100
-                                              # single-scan linearizes; the tables
-                                              # go to out.txt, out_pyramid.txt,
-                                              # out_scan.txt
+                                              # the eight registrations, 100
+                                              # single-scan linearizes and 100
+                                              # batched ones; the tables go to
+                                              # out.txt, out_pyramid.txt,
+                                              # out_scan.txt, out_batch.txt
 
 Phases, each of which ends the run with a nonzero exit if it fails:
   1. environment: card name and power limit (nvidia-smi), torch version;
@@ -38,7 +39,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      register_scan_pyramid with no host read allowed inside a registration;
      K1 must launch exactly 6 times per registration, and every pose must lie
      within a stated bound of the JAX package's pose for the same inputs,
-     built on the card and built on the CPU;
+     built on the card and built on the CPU; then one digest line, the
+     sha256 of phase 7's K1 outputs and phase 8's poses from card-built
+     inputs, by which two trees' runs show whether K1 moved by a bit;
   9. K4 (csrc/vgicp_moments.cu) against its plain PyTorch version on the
      card, on scan 1 against scan 0's leaf-1.0 map: N = 1, 1000, 25087 and
      25088 and half the mask False, with and without source covariances,
@@ -48,7 +51,20 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      vgicp_scan_linearize (K4) against lookup_fetch_planar + sym_inv + K3,
      probe_moments + K1 and vgicp_scan_linearize's plain route, with and
      without source covariances; the routes' systems held to each other;
-then one JSON line for all kernels and, last, the device line.
+ 11. K2 (the second entry point of csrc/vgicp_unary.cu) against its plain
+     PyTorch version, and lane by lane against K1 on the lane's inputs bit
+     for bit, on scan 1 against scan 0's leaf-1.0 map, each lane with the
+     moment rows of its own probe: B = 1, 2, 64; N = 1, 1000, 25087, 25088;
+     with and without source covariances; a different half of the found
+     flags cleared in each lane; lanes at tpu_parity's poses, at the
+     identity, and spread around the pose phase 8 registered;
+ 12. the batched linearize at a real size, the race of tpu_parity's batched
+     dispatch gate: B = 64 lanes over scan 1 (N = 25088), K2 against K1
+     launched once per lane and the plain vmapped version, with and without
+     source covariances; the routes' systems held to each other, K2's
+     launches equal to its route's calls;
+then one JSON line for all four kernels (K3, K1, K4, K2) and, last, the
+device line.
 
 Every path is driven with the kernels' launch counts set to 0 just before it
 and read just after. Nothing of JAX or of the JAX package is imported.
@@ -59,6 +75,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -162,6 +179,15 @@ K4_TOL = 1e-4
 # 3x3 inverse 45, and R C_s Rᵀ + C_t 81 (3 for eps I).
 K4_FLOPS_PER_POINT = {True: K3_FLOPS_PER_POINT + 22 + 45 + 81, False: K3_FLOPS_PER_POINT + 22 + 45 + 3}
 RACE_CALLS = 200
+# K2 (the batched unary linearize) raced as the batched dispatch gate of
+# scripts/tpu_parity.py races it: B = 64 lanes over one 25088-slot source,
+# min_voxel_points 3 and eps 1e-3, lane b at se3_exp(K1_TWIST) with its
+# x translation raised by 1e-6 b. K2 is held to its plain version at K1_TOL
+# and, lane by lane, to K1 bit for bit.
+K2_LANES = 64
+K2_MIN_POINTS = 3.0
+# the spread lanes: the registered pose times se3_exp(uniform(-0.1, 0.1, 6))
+K2_SPREAD_SEED = 3
 
 
 def log(msg: str) -> None:
@@ -308,6 +334,7 @@ def _zero_counts(FL) -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
     FL.launches = 0
     FL.unary_launches = 0
+    FL.unary_batch_launches = 0
     FL.moments_launches = 0
 
 
@@ -572,10 +599,18 @@ def _device_us_per_call(torch, fn, key: str, calls: int = 100):
     return total / calls if total > 0 else None
 
 
-def phase_k1(torch, source, maps) -> dict:
-    """K1 against its plain version on the pyramid's own inputs, at the pose
-    of K1_TWIST and at the identity; times at the last stage's shape
-    (N = 25088) and at the first stage's (stride 8)."""
+def _digest(tensors) -> str:
+    """sha256 over the bytes of `tensors`, in order: equal digests from two
+    runs mean equal values bit for bit."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _k1_cases(torch, source, maps) -> list:
+    """Phase 7's K1 inputs on the pyramid's own inputs, at the pose of
+    K1_TWIST and at the identity: [(name, args)]."""
     from gtsam_points_tpu_torch.ops import fused_linearize as FL
     from gtsam_points_tpu_torch.registration.pyramid import DEFAULT_STAGES, _source_planar
     from gtsam_points_tpu_torch.utils import se3
@@ -599,7 +634,7 @@ def phase_k1(torch, source, maps) -> dict:
                 weights[cut].contiguous() if weighted else None)
 
     strides = [st.stride for st in DEFAULT_STAGES]  # 8, 4, 2, 1
-    cases = [
+    return [
         ("N=1", stage_args(1, maps[-1], n=1)),
         ("N=1000", stage_args(1, maps[-1], n=1000)),
         ("N=25087", stage_args(1, maps[-1], n=25087)),
@@ -614,15 +649,27 @@ def phase_k1(torch, source, maps) -> dict:
         (f"stride {strides[0]} leaf 4", stage_args(strides[0], maps[0])),
         (f"stride {strides[0]} leaf 4 eps", stage_args(strides[0], maps[0], covs=False)),
     ]
-    strided = (pts_all[:, :: strides[0]],) + cases[-2][1][1:]
+
+
+def phase_k1(torch, source, maps) -> dict:
+    """K1 against its plain version on the pyramid's own inputs (_k1_cases);
+    times at the last stage's shape (N = 25088) and at the first stage's
+    (stride 8)."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.registration.pyramid import DEFAULT_STAGES
+
+    cases = _k1_cases(torch, source, maps)
+    strided = (source.points.T.contiguous()[:, :: DEFAULT_STAGES[0].stride],) + cases[-2][1][1:]
     try:
         FL.linearize_vgicp_unary_cuda(*strided)
         raise AssertionError("K1's wrapper took a non-contiguous source")
     except ValueError:
         pass
+    outputs = []
     for name, args in cases:
         lin = FL.linearize_vgicp_unary_cuda(*args)
         ref = FL.linearize_vgicp_unary_plain(*args)
+        outputs.append(lin)
         torch.cuda.synchronize()
         abs_err, rel_err = _max_err(torch, lin, ref)
         log(f"[k1] {name}: valid {int(ref.num_inliers)} max_abs_err={abs_err:.3e} "
@@ -630,7 +677,7 @@ def phase_k1(torch, source, maps) -> dict:
         if rel_err > K1_TOL or int(lin.num_inliers) != int(ref.num_inliers):
             raise AssertionError(f"K1 disagrees with its plain version ({name})")
 
-    out = {}
+    out = {"outputs": outputs}
     for key, (name, args) in (("main", cases[3]), ("stride8", cases[-2])):
         lin = FL.linearize_vgicp_unary_cuda(*args)
         abs_err, _ = _max_err(torch, lin, FL.linearize_vgicp_unary_plain(*args))
@@ -652,6 +699,31 @@ def phase_k1(torch, source, maps) -> dict:
     return out
 
 
+def _register_all(torch, source, maps):
+    """Phase 8's registrations: `source` against the pyramid `maps` from
+    each of the PYRAMID_INITS initial poses, each with no host read allowed
+    inside it. -> (poses [PYRAMID_INITS, 4, 4], ms per registration)"""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.registration import register_scan_pyramid
+    from gtsam_points_tpu_torch.utils import se3
+
+    xis = np.random.RandomState(PYRAMID_SEED).uniform(-0.1, 0.1, (PYRAMID_INITS, 6)).astype(np.float32)
+    T0s = se3.se3_exp(torch.from_numpy(xis).cuda())
+    poses, reg_ms = [], []
+    for T0 in T0s:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")  # a host read inside raises
+        try:
+            poses.append(register_scan_pyramid(maps, source, T0))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        reg_ms.append((time.perf_counter() - t0) * 1e3)
+    return torch.stack(poses), reg_ms
+
+
 def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
     """The pyramid path: eight registrations on the card-built inputs, each
     with no host read allowed inside it; K1's count over them and their
@@ -660,32 +732,13 @@ def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
     CPU-built inputs against the JAX package's; all at PYRAMID_BOUND_M. The
     CUDA path against the plain path on those. With `profile`, the eight are
     traced too (table next to `profile`)."""
-    import numpy as np
-
     from gtsam_points_tpu_torch.ops import fused_linearize as FL
-    from gtsam_points_tpu_torch.registration import register_scan_pyramid
     from gtsam_points_tpu_torch.utils import se3
 
-    xis = np.random.RandomState(PYRAMID_SEED).uniform(-0.1, 0.1, (PYRAMID_INITS, 6)).astype(np.float32)
-    T0s = se3.se3_exp(torch.from_numpy(xis).cuda())
     top = torch.tensor(PYRAMID_JAX_POSES, dtype=torch.float32).reshape(-1, 3, 4)
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0]).expand(len(top), 1, 4)
     jax_poses = torch.cat([top, bottom], 1).cuda()
     torch.cuda.synchronize()
-
-    def register_all(source, maps):
-        poses, reg_ms = [], []
-        for T0 in T0s:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("error")  # a host read inside raises
-            try:
-                poses.append(register_scan_pyramid(maps, source, T0))
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            reg_ms.append((time.perf_counter() - t0) * 1e3)
-        return torch.stack(poses), reg_ms
 
     def gap(label, a, b, bound_m, bound_rad):
         """Largest per-pose gap between a and b; over the bound fails the phase."""
@@ -697,7 +750,7 @@ def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
 
     source, maps, _ = inputs["card"]
     _zero_counts(FL)
-    poses, reg_ms = register_all(source, maps)
+    poses, reg_ms = _register_all(torch, source, maps)
     k1_launches, k3_launches = FL.unary_launches, FL.launches
 
     if not bool(torch.all(torch.isfinite(poses))):
@@ -715,22 +768,22 @@ def phase_pyramid(torch, inputs: dict, profile: Optional[str]) -> dict:
         f"{float(truth_rot.max()):.6f} rad")
 
     gap("card-built inputs vs the JAX package", jax_poses, poses, PYRAMID_BOUND_M, PYRAMID_BOUND_RAD)
-    poses_again, _ = register_all(*inputs["again"][:2])
+    poses_again, _ = _register_all(torch, *inputs["again"][:2])
     same = torch.equal(poses, poses_again)
     log(f"[pyramid] second card build's poses equal the first's bit for bit: {same}")
     if not same:
         raise AssertionError("pyramid: two card builds of the same inputs register to other poses")
-    poses_cpu, _ = register_all(*inputs["cpu"][:2])
+    poses_cpu, _ = _register_all(torch, *inputs["cpu"][:2])
     gap("CPU-built inputs vs the JAX package", jax_poses, poses_cpu, PYRAMID_BOUND_M, PYRAMID_BOUND_RAD)
     with mock.patch.object(FL, "linearize_vgicp_unary", FL.linearize_vgicp_unary_plain):
-        poses_plain, _ = register_all(*inputs["cpu"][:2])
+        poses_plain, _ = _register_all(torch, *inputs["cpu"][:2])
     gap("CUDA path vs plain path, CPU-built inputs", poses_plain, poses_cpu,
         PYRAMID_PATH_BOUND_M, PYRAMID_PATH_BOUND_RAD)
 
     if profile:
         root, ext = os.path.splitext(profile)
         _trace(torch, f"{PYRAMID_INITS} pyramid registrations",
-               lambda: (sum(register_all(source, maps)[1]), K1_LAUNCHES_PER_REGISTRATION * PYRAMID_INITS),
+               lambda: (sum(_register_all(torch, source, maps)[1]), K1_LAUNCHES_PER_REGISTRATION * PYRAMID_INITS),
                "Gauss-Newton iteration", "unary_", f"{root}_pyramid{ext}")
     return {"launches": k1_launches, "median_ms": statistics.median(reg_ms), "poses": poses}
 
@@ -915,11 +968,233 @@ def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
     return {"launches": launches, "race": out}
 
 
+def k2_bound_ms(args) -> tuple:
+    """The least time for K2 on these inputs: each input read once (each
+    lane's moment rows, found flags and pose; the shared p and C_s when
+    given), each lane's 29 sums written once; K1_FLOPS_PER_POINT for each
+    point of each lane that passes the gate here."""
+    p, momT_b, found_b, _, mvp, _, sc = args
+    lanes, n = momT_b.shape[0], p.shape[1]
+    nbytes = lanes * (40 + 1) * n + (12 + (24 if sc is not None else 0)) * n + lanes * 64 + lanes * 29 * 4
+    gate = int((found_b & (momT_b[:, 0] >= mvp)).sum())
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = K1_FLOPS_PER_POINT * gate / PEAK_FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _k2_poses(torch, kind: str, T_reg=None):
+    """K2_LANES poses [B, 4, 4], contiguous: "parity", tpu_parity's lanes;
+    "identity"; "spread", T_reg times se3_exp of a uniform(-0.1, 0.1, 6)
+    twist of RandomState(K2_SPREAD_SEED) for each lane."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.utils import se3
+
+    if kind == "identity":
+        return torch.eye(4, device="cuda").repeat(K2_LANES, 1, 1)
+    if kind == "parity":
+        T = se3.se3_exp(torch.tensor(K1_TWIST)).to("cuda", torch.float32).repeat(K2_LANES, 1, 1)
+        T[:, 0, 3] += 1e-6 * torch.arange(K2_LANES, dtype=torch.float32, device="cuda")
+        return T
+    xis = np.random.RandomState(K2_SPREAD_SEED).uniform(-0.1, 0.1, (K2_LANES, 6)).astype(np.float32)
+    return (T_reg @ se3.se3_exp(torch.from_numpy(xis).cuda())).contiguous()
+
+
+def _k2_args(torch, vmap, pts, mask, covs6, poses, n=None, half=None):
+    """K2's inputs for the lanes `poses` [B, 4, 4] on the first n points:
+    each lane's moment rows and found flags from its own probe at its own
+    pose, stacked into contiguous [B, 10, N] and [B, N]; `half` [B, N]
+    clears a different half of each lane's found flags."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+
+    pts = pts[:, :n].contiguous()
+    probes = [FL.probe_moments(vmap, pts, mask[:n], T) for T in poses]
+    momT_b = torch.stack([m for m, _ in probes])
+    found_b = torch.stack([f for _, f in probes])
+    if half is not None:
+        found_b = found_b & half[:, :n]
+    return (pts, momT_b, found_b, poses, K2_MIN_POINTS, 1e-3,
+            None if covs6 is None else covs6[:, :n].contiguous())
+
+
+def _lane_err(torch, lin, ref) -> tuple:
+    """-> (max abs error, worst error / max|ref|) over the lanes and fields;
+    the scale is max|ref| of the field in its own lane."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for a, b in zip(lin, ref):
+        a, b = a.double().reshape(a.shape[0], -1), b.double().reshape(b.shape[0], -1)
+        err = (a - b).abs().amax(1)
+        worst_abs = max(worst_abs, float(err.max()))
+        worst_rel = max(worst_rel, float((err / (b.abs().amax(1) + 1e-9)).max()))
+    return worst_abs, worst_rel
+
+
+def _check_lanes(torch, label: str, lin, ref, tol: float) -> float:
+    """Per lane: error over max|ref| of every field, and equal inlier counts,
+    or raise. -> the max abs error."""
+    abs_err, rel_err = _lane_err(torch, lin, ref)
+    same_count = torch.equal(lin.num_inliers, ref.num_inliers)
+    log(f"{label}: valid {int(ref.num_inliers.sum())} in {ref.num_inliers.shape[0]} lanes "
+        f"max_abs_err={abs_err:.3e} err/max|ref|={rel_err:.3e} (tol {tol}), inlier counts equal {same_count}")
+    if rel_err > tol or not same_count:
+        raise AssertionError(f"{label} disagree")
+    return abs_err
+
+
+def _k1_lanes(torch, args):
+    """K1 launched once per lane on that lane's inputs, stacked."""
+    from gtsam_points_tpu_torch.factors.linearized import Linearized
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+
+    p, momT_b, found_b, deltas, *rest = args
+    lins = [FL.linearize_vgicp_unary_cuda(p, momT_b[b], found_b[b], deltas[b], *rest)
+            for b in range(deltas.shape[0])]
+    return Linearized(*(torch.stack(f) for f in zip(*lins)))
+
+
+def phase_k2(torch, source, vmap, T_reg) -> None:
+    """K2 against its plain version and, lane by lane, against K1 on the
+    lane's own inputs, on scan 1 (`source`) against scan 0's leaf-1.0 map:
+    B = 1, 2 and 64; N = 1, 1000, 25087 and 25088; with and without source
+    covariances; a different half of the found flags cleared in each lane;
+    lanes at tpu_parity's poses, at the identity, and spread around `T_reg`,
+    the card's registration of scan 1."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.registration.pyramid import _source_planar
+
+    pts, covs_all = (t.contiguous() for t in _source_planar(source))
+    n_all = pts.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    half = torch.rand((K2_LANES, n_all), generator=gen, device="cuda") > 0.5
+    poses = {k: _k2_poses(torch, k, T_reg) for k in ("parity", "identity", "spread")}
+
+    def args(kind="parity", lanes=K2_LANES, n=None, covs=True, half_mask=False):
+        return _k2_args(torch, vmap, pts, source.mask, covs_all if covs else None, poses[kind][:lanes].contiguous(),
+                        n, half[:lanes] if half_mask else None)
+
+    cases = [(f"B=1 N={n_all} covs parity", dict(lanes=1)),
+             (f"B=2 N={n_all} covs parity", dict(lanes=2)),
+             (f"B=2 N={n_all} eps parity", dict(lanes=2, covs=False))]
+    cases += [(f"B={K2_LANES} N={n} covs parity", dict(n=n)) for n in (1, 1000, n_all - 1)]
+    cases += [(f"B={K2_LANES} N={n_all - 1} eps parity", dict(n=n_all - 1, covs=False))]
+    for kind in poses:
+        for covs in (True, False):
+            mode = "covs" if covs else "eps"
+            cases.append((f"B={K2_LANES} N={n_all} {mode} {kind}", dict(kind=kind, covs=covs)))
+            cases.append((f"B={K2_LANES} N={n_all} {mode} half-mask {kind}", dict(kind=kind, covs=covs, half_mask=True)))
+    expanded = args(lanes=2)
+    expanded = expanded[:1] + (expanded[1][:1].expand(2, -1, -1),) + expanded[2:]
+    try:
+        FL.linearize_vgicp_unary_batch_cuda(*expanded)
+        raise AssertionError("K2's wrapper took an expanded momT_b")
+    except ValueError:
+        pass
+    for name, kw in cases:
+        a = args(**kw)
+        lin = FL.linearize_vgicp_unary_batch_cuda(*a)
+        ref = FL.linearize_vgicp_unary_batch_plain(*a)
+        k1 = _k1_lanes(torch, a)
+        torch.cuda.synchronize()
+        _check_lanes(torch, f"[k2] {name}: K2 vs plain", lin, ref, K1_TOL)
+        lanes_differ = sum(int((x != y).reshape(x.shape[0], -1).any(1).sum()) for x, y in zip(lin, k1))
+        _, k1_rel = _lane_err(torch, lin, k1)
+        log(f"[k2] {name}: K2 vs K1 lane by lane: {lanes_differ} lane-fields differ in any bit "
+            f"(must be 0), err/max|ref| {k1_rel:.3e}")
+        if lanes_differ:
+            raise AssertionError(f"K2 differs from K1 on a lane's inputs ({name})")
+
+
+def phase_batch_race(torch, source, vmap, profile: Optional[str]) -> dict:
+    """The batched linearize, raced as scripts/tpu_parity.py's batched
+    dispatch gate races it: K2_LANES lanes at tpu_parity's poses over scan 1
+    (N = 25088), each with the moment rows of its own probe, with and
+    without source covariances. Three routes: K2 (one launch pair), K1
+    launched once per lane (then stacked) and the plain vmapped version, the
+    port of the reference's production route. Each route's median wrapper
+    ms over RACE_CALLS calls (CUDA events) and device us per call from a
+    profiler trace, all kernels and the route's own pair; the routes'
+    systems held to each other. K2's launches over the phase are counted and
+    must equal its route's calls. With `profile`, 100 K2 calls with
+    covariances are traced too (table next to `profile`)."""
+    from gtsam_points_tpu_torch.factors.linearized import Linearized
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.registration.pyramid import _source_planar
+
+    pts, covs_all = (t.contiguous() for t in _source_planar(source))
+    deltas = _k2_poses(torch, "parity")
+    calls = {"unary_batch_cuda": 0}
+
+    def routes(a):
+        def unary_batch_cuda():
+            calls["unary_batch_cuda"] += 1
+            return FL.linearize_vgicp_unary_batch(*a)
+
+        def unary_loop_cuda():
+            lins = [FL.linearize_vgicp_unary(a[0], a[1][b], a[2][b], a[3][b], *a[4:]) for b in range(K2_LANES)]
+            return Linearized(*(torch.stack(f) for f in zip(*lins)))
+
+        def unary_batch_plain():
+            return FL.linearize_vgicp_unary_batch_plain(*a)
+
+        return {"unary_batch_cuda": (unary_batch_cuda, "unary_"), "unary_loop_cuda": (unary_loop_cuda, "unary_"),
+                "unary_batch_plain": (unary_batch_plain, None)}
+
+    out = {"race": {}}
+    _zero_counts(FL)
+    for covs6 in (covs_all, None):
+        mode = "covs" if covs6 is not None else "eps"
+        a = _k2_args(torch, vmap, pts, source.mask, covs6, deltas)
+        race = routes(a)
+        k2, loop, plain = (fn() for fn, _ in race.values())
+        torch.cuda.synchronize()
+        err = _check_lanes(torch, f"[batch] {mode}: K2 vs the plain vmapped route", k2, plain, K1_TOL)
+        _check_lanes(torch, f"[batch] {mode}: K2 vs K1 once per lane", k2, loop, K1_TOL)
+        bound, bound_by = k2_bound_ms(a)
+        log(f"[batch] {mode}: B={K2_LANES} N={a[0].shape[1]}, {int(plain.num_inliers.sum())} gated points over "
+            f"the lanes, K2 bound {bound * 1e3:.4f} us ({bound_by}); no single PyTorch call computes this function")
+        if mode == "covs":
+            out.update(max_abs_err=err, bound_ms=bound, bound_by=bound_by)
+        for name, (fn, key) in race.items():
+            ms = _median_ms(torch, fn, reps=RACE_CALLS)
+            all_us = _device_us_per_call(torch, fn, "")
+            own_us = None if key is None else _device_us_per_call(torch, fn, key)
+            out["race"][f"{name} {mode}"] = {"ms": ms, "device_us": all_us, "own_us": own_us}
+            own = "" if key is None else (f", its '{key}' kernels {own_us:.3f} us" if own_us is not None
+                                          else ", its kernels not measured")
+            device = "not measured" if all_us is None else f"{all_us:.3f} us"
+            log(f"[batch] {mode} {name}: {ms:.4f} ms median of {RACE_CALLS} calls (wrapper, CUDA events), "
+                f"device {device} per call (all kernels){own}")
+        by_ms = min(race, key=lambda k: out["race"][f"{k} {mode}"]["ms"])
+        timed = [k for k in race if out["race"][f"{k} {mode}"]["device_us"] is not None]
+        by_us = min(timed, key=lambda k: out["race"][f"{k} {mode}"]["device_us"]) if timed else "not measured"
+        log(f"[batch] {mode}: fastest route by wrapper ms {by_ms}, by device us {by_us} (recorded, not gated)")
+    if profile:
+        root, ext = os.path.splitext(profile)
+        batch = routes(_k2_args(torch, vmap, pts, source.mask, covs_all, deltas))["unary_batch_cuda"][0]
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                batch()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, 100
+
+        _trace(torch, f"100 batched linearizes of {K2_LANES} lanes", run, "call", "unary_", f"{root}_batch{ext}")
+    launches = FL.unary_batch_launches
+    log(f"[batch] K2 launches {launches} for {calls['unary_batch_cuda']} linearize_vgicp_unary_batch calls; "
+        f"K1 {FL.unary_launches}")
+    if launches != calls["unary_batch_cuda"] or launches == 0:
+        raise AssertionError(f"K2 launched {launches} times for {calls['unary_batch_cuda']} calls")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
-                        help="profile three steps, the pyramid and the single-scan linearize, "
-                             "tables to PATH, PATH_pyramid and PATH_scan")
+                        help="profile three steps, the pyramid, the single-scan linearize and the "
+                             "batched linearize, tables to PATH, PATH_pyramid, PATH_scan and PATH_batch")
     args = parser.parse_args()
 
     import torch
@@ -939,9 +1214,13 @@ def main() -> int:
     inputs = phase_pyramid_inputs(torch, scans, priors)
     k1 = phase_k1(torch, *inputs["card"][:2])
     pyramid = phase_pyramid(torch, inputs, args.profile)
+    log(f"[digest] phase 7's K1 outputs and phase 8's poses: sha256 "
+        f"{_digest([t for lin in k1['outputs'] for t in lin] + [pyramid['poses']])}")
     source, maps, _ = inputs["card"]
     k4 = phase_k4(torch, source, maps[-1], pyramid["poses"][0])
     race = phase_race(torch, source, maps[-1], args.profile)
+    phase_k2(torch, source, maps[-1], pyramid["poses"][0])
+    batch = phase_batch_race(torch, source, maps[-1], args.profile)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -979,6 +1258,18 @@ def main() -> int:
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "vgicp_unary_batch",
+        "route": "cuda",
+        "source": "gtsam_points_tpu_torch/csrc/vgicp_unary.cu",
+        "replaces": "gtsam_points_tpu/ops/pallas_linearize.py:626",
+        "launches": batch["launches"],
+        "max_abs_err": batch["max_abs_err"],
+        "ms": batch["race"]["unary_batch_cuda covs"]["ms"],
+        "plain_ms": batch["race"]["unary_batch_plain covs"]["ms"],
+        "bound_ms": batch["bound_ms"],
+        "bound_by": batch["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,12 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
   from raw voxel moments. On a CUDA tensor it launches csrc/vgicp_unary.cu
   (or raises); on a CPU tensor it takes `linearize_vgicp_unary_plain`, the
   port of the reference's XLA twin `linearize_vgicp_unary_xla`.
+- K2, `linearize_vgicp_unary_batch`: K1's sums for B poses over one shared
+  source, in one launch pair. On CUDA tensors it launches the second entry
+  point of csrc/vgicp_unary.cu (or raises); on CPU tensors it takes
+  `linearize_vgicp_unary_batch_plain`, `torch.func.vmap` of K1's plain
+  version: the port of the reference's off-TPU route, `jax.vmap` of
+  `linearize_vgicp_unary_xla`.
 - K4, `linearize_vgicp_moments`: the full 12x12 VGICP system from raw voxel
   moments (finalize, fused covariance in the target frame, 3x3 inverse,
   Jacobians and reduction in one pass). On a CUDA tensor it launches
@@ -23,9 +29,9 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
   device whose sums hold exactly one nonzero term; here the record picked by
   `table_probe` is used directly, which gives the same rows.
 
-`launches`, `unary_launches` and `moments_launches` count the kernel launches
-of K3, K1 and K4, so a run can show that its main path went through the
-kernels.
+`launches`, `unary_launches`, `unary_batch_launches` and `moments_launches`
+count the kernel launches of K3, K1, K2 and K4, so a run can show that its
+main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, table_probe
 
 launches = 0
 unary_launches = 0
+unary_batch_launches = 0
 moments_launches = 0
 
 _THREADS = 256  # csrc/linearize_fused.cu kThreads
@@ -76,14 +83,14 @@ def _library():
     return fn
 
 
-def _check(name: str, x: torch.Tensor, shape, dtype, device: torch.device) -> None:
+def _check(name: str, x: torch.Tensor, shape, dtype, device: torch.device, contiguous: bool = True) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
+    if contiguous and not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -161,6 +168,7 @@ def error_fused(p_src, mu, W6, mask, delta) -> torch.Tensor:
 _UNARY_THREADS = 256  # csrc/vgicp_unary.cu kThreads
 _UNARY_OUT = 29  # h11 (6), sA (9), A (6), p x u (3), u (3), error, weighted count
 _UNARY_MAX_BLOCKS = 1024
+_UNARY_MAX_LANES = 65535  # K2's lanes run on gridDim.y
 
 # [6, 6] H_ss = [[h11, sA], [sAᵀ, A]] as positions in the 29 sums
 _UNARY_H = [
@@ -196,22 +204,24 @@ def _unary_library():
 
 
 def _unpack_unary(col: torch.Tensor) -> Linearized:
-    """29 sums (h11, sA, A, p x u, u, error, weighted count) -> Linearized
-    with only the source block; the target blocks are zero."""
+    """29 sums (h11, sA, A, p x u, u, error, weighted count) [..., 29] ->
+    Linearized with only the source block, each field with col's leading
+    axes; the target blocks are zero."""
     index = _unary_h_index.get(col.device)
     if index is None:
         # an asynchronous copy: a blocking one would sync the stream
         index = torch.tensor(_UNARY_H, dtype=torch.int64).to(col.device, non_blocking=True)
         _unary_h_index[col.device] = index
-    z6 = col.new_zeros((6, 6))
+    lead = col.shape[:-1]
+    z6 = col.new_zeros(lead + (6, 6))
     return Linearized(
         H_tt=z6,
-        H_ss=col[index],
+        H_ss=col[..., index],
         H_ts=z6,
-        b_t=col.new_zeros((6,)),
-        b_s=-col[21:27],
-        error=col[27],
-        num_inliers=col[28].to(torch.int32),
+        b_t=col.new_zeros(lead + (6,)),
+        b_s=-col[..., 21:27],
+        error=col[..., 27],
+        num_inliers=col[..., 28].to(torch.int32),
     )
 
 
@@ -343,6 +353,105 @@ def probe_moments(vmap: GaussianVoxelMap, p_src: torch.Tensor, mask: torch.Tenso
     keys = vk.point_keys_planar(pm, mask, vmap.leaf)
     _, found, pick, _ = table_probe(vmap.table, keys)
     return pick[:, 2:12].T.contiguous(), found & mask
+
+
+# ---------------------------------------------------------------------------
+# K2: K1 for B poses over one shared source, in one launch
+# ---------------------------------------------------------------------------
+
+
+def _unary_batch_library():
+    """K2's launcher, the second entry point of csrc/vgicp_unary.cu."""
+    lib = _build.load("vgicp_unary")
+    fn = lib.gpt_vgicp_unary_batch
+    if fn.argtypes is None:  # first use in this process
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float]
+            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        if (lib.gpt_vgicp_unary_out_len() != _UNARY_OUT or lib.gpt_vgicp_unary_threads() != _UNARY_THREADS
+                or lib.gpt_vgicp_unary_batch_max_lanes() != _UNARY_MAX_LANES):
+            raise RuntimeError("csrc/vgicp_unary.cu does not match its wrapper")
+    return fn
+
+
+def _check_unary_batch(p_src, momT_b, found_b, deltas, src_covs6, contiguous: bool):
+    """Shapes, dtypes and one device of K2's inputs; contiguity only for the
+    kernel. -> (B, N)"""
+    dev = p_src.device
+    if deltas.dim() != 3 or deltas.shape[0] < 1:
+        raise ValueError(f"deltas has shape {tuple(deltas.shape)}, expected [B, 4, 4] with B >= 1")
+    b, n = deltas.shape[0], p_src.shape[-1]
+    _check("p_src", p_src, (3, n), torch.float32, dev, contiguous)
+    _check("momT_b", momT_b, (b, 10, n), torch.float32, dev, contiguous)
+    _check("found_b", found_b, (b, n), torch.bool, dev, contiguous)
+    _check("deltas", deltas, (b, 4, 4), torch.float32, dev, contiguous)
+    if src_covs6 is not None:
+        _check("src_covs6", src_covs6, (6, n), torch.float32, dev, contiguous)
+    return b, n
+
+
+def linearize_vgicp_unary_batch_cuda(
+    p_src, momT_b, found_b, deltas, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """Launch the Hopper kernel. Inputs: p_src [3, N] and src_covs6 [6, N] or
+    None shared by the lanes, momT_b [B, 10, N], found_b [B, N] bool, deltas
+    [B, 4, 4], all f32 (but found_b) and contiguous on one CUDA device, with
+    1 <= B <= 65535. An expanded (stride 0) momT_b is refused: each lane reads
+    its own rows."""
+    global unary_batch_launches
+    dev = p_src.device
+    if dev.type != "cuda":
+        raise ValueError(f"linearize_vgicp_unary_batch_cuda needs CUDA tensors, got {dev}")
+    b, n = _check_unary_batch(p_src, momT_b, found_b, deltas, src_covs6, contiguous=True)
+    if b > _UNARY_MAX_LANES:
+        raise ValueError(f"{b} lanes, at most {_UNARY_MAX_LANES} in one launch")
+    fn = _unary_batch_library()
+    blocks = unary_num_blocks(n)  # K1's grid in every lane, so K1's order of the sums
+    partial = torch.empty((b, blocks, _UNARY_OUT), dtype=torch.float32, device=dev)
+    out = torch.empty((b, _UNARY_OUT), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            p_src.data_ptr(), momT_b.data_ptr(), found_b.data_ptr(),
+            None if src_covs6 is None else src_covs6.data_ptr(),
+            deltas.data_ptr(), float(min_voxel_points), float(eps),
+            partial.data_ptr(), out.data_ptr(), n, blocks, b, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"vgicp_unary_batch kernel launch failed with CUDA error {err}")
+    unary_batch_launches += 1
+    return _unpack_unary(out)
+
+
+def linearize_vgicp_unary_batch_plain(
+    p_src, momT_b, found_b, deltas, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """The same function in plain PyTorch, on any device: K1's plain version
+    mapped over (momT_b, found_b, deltas) with p_src and src_covs6 shared, as
+    the reference maps `linearize_vgicp_unary_xla` off the TPU."""
+
+    def lane(momT, found, delta):
+        return linearize_vgicp_unary_plain(p_src, momT, found, delta, min_voxel_points, eps, src_covs6)
+
+    return torch.func.vmap(lane)(momT_b, found_b, deltas)
+
+
+def linearize_vgicp_unary_batch(
+    p_src, momT_b, found_b, deltas, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """Batched unary VGICP linearize: B poses sharing one source scan.
+
+    p_src [3, N] and src_covs6 [6, N] or None are shared; momT_b [B, 10, N],
+    found_b [B, N] bool, deltas [B, 4, 4]. -> Linearized whose fields carry a
+    leading [B] axis, with H_ss, b_s, error and num_inliers set and zero
+    target blocks. CUDA tensors go to the kernel (one launch pair for all B),
+    CPU tensors to the plain version."""
+    if p_src.device.type == "cpu":
+        _check_unary_batch(p_src, momT_b, found_b, deltas, src_covs6, contiguous=False)
+        return linearize_vgicp_unary_batch_plain(p_src, momT_b, found_b, deltas, min_voxel_points, eps, src_covs6)
+    return linearize_vgicp_unary_batch_cuda(p_src, momT_b, found_b, deltas, min_voxel_points, eps, src_covs6)
 
 
 # ---------------------------------------------------------------------------
