@@ -6,10 +6,11 @@ Run from the root of a checkout:
     python3 chip_smoke.py                     # the check, one card
     python3 chip_smoke.py --profile out.txt   # also trace three odometry steps,
                                               # the eight registrations, 100
-                                              # single-scan linearizes and 100
-                                              # batched ones; the tables go to
-                                              # out.txt, out_pyramid.txt,
-                                              # out_scan.txt, out_batch.txt
+                                              # single-scan linearizes on K4
+                                              # and 100 on K5, and 100 batched
+                                              # ones; the tables go to out.txt,
+                                              # out_pyramid.txt, out_scan.txt,
+                                              # out_dense.txt, out_batch.txt
 
 Phases, each of which ends the run with a nonzero exit if it fails:
   1. environment: card name and power limit (nvidia-smi), torch version;
@@ -49,8 +50,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      registration of scan 1 found;
  10. the single-scan linearize path at a real size, the race bench.py runs:
      vgicp_scan_linearize (K4) against lookup_fetch_planar + sym_inv + K3,
-     probe_moments + K1 and vgicp_scan_linearize's plain route, with and
-     without source covariances; the routes' systems held to each other;
+     probe_moments + K1, probe_moments + K5 (bench.py's `unary_dense`), and
+     the plain routes: vgicp_scan_linearize's, probe_moments + K1's plain
+     version (bench.py's `unary_xla`) and lookup_fetch_planar + sym_inv +
+     the plain point system (bench.py's `planar_xla`); with and without
+     source covariances; the routes' systems held to each other; K4's and
+     K5's launches equal to their routes' calls;
  11. K2 (the second entry point of csrc/vgicp_unary.cu) against its plain
      PyTorch version, and lane by lane against K1 on the lane's inputs bit
      for bit, on scan 1 against scan 0's leaf-1.0 map, each lane with the
@@ -63,7 +68,15 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      launched once per lane and the plain vmapped version, with and without
      source covariances; the routes' systems held to each other, K2's
      launches equal to its route's calls;
-then one JSON line for all four kernels (K3, K1, K4, K2) and, last, the
+ 13. K5 (csrc/vgicp_unary_dense.cu) against its plain PyTorch version and,
+     on the source block, against K1, on scan 1 against scan 0's leaf-1.0
+     map and on the stride-8 stage against the leaf-4 map: N = 1, 7, 8,
+     3136, 4095, 4096, 4097, 25087 and 25088; with and without source
+     covariances; min_voxel_points 1 and 3 (tpu_parity's dense gate: 3,
+     eps 1e-3, covariances); half the mask False; at the identity, at
+     K1_TWIST's pose and at the pose phase 8 registered; each K5 call twice,
+     equal bit for bit, with no host read allowed;
+then one JSON line for all five kernels (K3, K1, K4, K2, K5) and, last, the
 device line.
 
 Every path is driven with the kernels' launch counts set to 0 just before it
@@ -336,6 +349,7 @@ def _zero_counts(FL) -> None:
     FL.unary_launches = 0
     FL.unary_batch_launches = 0
     FL.moments_launches = 0
+    FL.dense_launches = 0
 
 
 def _ring_frames(torch, n_poses: int):
@@ -888,12 +902,14 @@ def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
     """The single-scan linearize path, raced as bench.py races it, at
     K1_TWIST's pose, with and without source covariances: each route's median
     wrapper ms over RACE_CALLS calls (CUDA events) and device us per call
-    from a profiler trace, all kernels and the route's own pair. The routes'
-    systems are held to each other: K4's full system to the K3 route's, and
-    its source block to K1's (C_t + R C_s Rᵀ = R (Rᵀ C_t R + C_s) Rᵀ).
-    K4's launches over the race are counted and returned. With `profile`,
-    100 calls of vgicp_scan_linearize with covariances are traced too (table
-    next to `profile`)."""
+    from a profiler trace, all kernels and the route's own kernels. The
+    routes' systems are held to each other: K4's full system to the K3
+    route's, its source block to K1's (C_t + R C_s Rᵀ = R (Rᵀ C_t R + C_s)
+    Rᵀ), K5's source block to K1's, and each plain route to its kernel's.
+    K4's and K5's launches over the race are counted, must equal their
+    routes' calls, and are returned. With `profile`, 100 calls each of
+    vgicp_scan_linearize and of probe_moments + K5 with covariances are
+    traced too (tables next to `profile`)."""
     from gtsam_points_tpu_torch.ops import fused_linearize as FL
     from gtsam_points_tpu_torch.ops import planar
     from gtsam_points_tpu_torch.ops.voxelmap import lookup_fetch_planar
@@ -904,7 +920,7 @@ def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
     mask = source.mask
     T = se3.se3_exp(torch.tensor(K1_TWIST)).to("cuda", torch.float32).contiguous()
     eps_eye6 = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], device="cuda")[:, None] * 1e-3
-    calls = {"moments_fused": 0}
+    calls = {"moments_fused": 0, "unary_dense_cuda": 0}
 
     def routes(covs6):
         def moments_fused():
@@ -921,29 +937,51 @@ def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
             momT, found = FL.probe_moments(vmap, pts, mask, T)
             return FL.linearize_vgicp_unary(pts, momT, found, T, 1.0, src_covs6=covs6)
 
+        def unary_dense_cuda():
+            calls["unary_dense_cuda"] += 1
+            momT, found = FL.probe_moments(vmap, pts, mask, T)
+            return FL.linearize_vgicp_unary_dense(pts, momT, found, T, 1.0, src_covs6=covs6)
+
         def moments_plain():
             momT, found = FL.probe_moments(vmap, pts, mask, T)
             return FL.linearize_vgicp_moments_plain(pts, momT, found, T, 1.0, 1e-3, covs6)
 
+        def unary_plain():
+            momT, found = FL.probe_moments(vmap, pts, mask, T)
+            return FL.linearize_vgicp_unary_plain(pts, momT, found, T, 1.0, 1e-3, covs6)
+
+        def planar_plain():
+            pm = planar.transform(T, pts)
+            found, _, mu, C6 = lookup_fetch_planar(vmap, pm, mask)
+            fused = C6 + (planar.sym_rotate(T[:3, :3], covs6) if covs6 is not None else eps_eye6)
+            return planar.linearize_point_system(pts, pm, pm - mu, planar.sym_inv(fused), found, T[:3, :3])
+
         return {"moments_fused": (moments_fused, "moments_"), "planar_fused": (planar_fused, "linearize_"),
-                "unary_cuda": (unary_cuda, "unary_"), "moments_plain": (moments_plain, None)}
+                "unary_cuda": (unary_cuda, "unary_"), "unary_dense_cuda": (unary_dense_cuda, "unary_"),
+                "moments_plain": (moments_plain, None), "unary_plain": (unary_plain, None),
+                "planar_plain": (planar_plain, None)}
 
     out = {}
     _zero_counts(FL)
     for covs6 in (covs_all, None):
         mode = "covs" if covs6 is not None else "eps"
         race = routes(covs6)
-        k4, k3, k1 = (race[k][0]() for k in ("moments_fused", "planar_fused", "unary_cuda"))
+        k4, k3, k1, k5, u_plain, p_plain = (race[k][0]() for k in (
+            "moments_fused", "planar_fused", "unary_cuda", "unary_dense_cuda", "unary_plain", "planar_plain"))
         torch.cuda.synchronize()
         _check_close(torch, f"[race] {mode}: K4 vs the K3 route, full system", k4, k3, K4_TOL)
         _check_close(torch, f"[race] {mode}: K4 vs K1, source block", _source_block(k4), _source_block(k1), K4_TOL)
+        _check_close(torch, f"[race] {mode}: K5 vs K1, source block", _source_block(k5), _source_block(k1), K4_TOL)
+        _check_close(torch, f"[race] {mode}: K1's plain route vs K1, source block", _source_block(u_plain),
+                     _source_block(k1), K4_TOL)
+        _check_close(torch, f"[race] {mode}: the plain point system vs the K3 route, full system", p_plain, k3, K4_TOL)
         for name, (fn, key) in race.items():
             ms = _median_ms(torch, fn, reps=RACE_CALLS)
             all_us = _device_us_per_call(torch, fn, "")
             own_us = None if key is None else _device_us_per_call(torch, fn, key)
             out[f"{name} {mode}"] = {"ms": ms, "device_us": all_us, "own_us": own_us}
-            own = "" if key is None else (f", its '{key}' pair {own_us:.3f} us" if own_us is not None
-                                          else ", its pair not measured")
+            own = "" if key is None else (f", its '{key}' kernels {own_us:.3f} us" if own_us is not None
+                                          else ", its kernels not measured")
             device = "not measured" if all_us is None else f"{all_us:.3f} us"
             log(f"[race] {mode} {name}: {ms:.4f} ms median of {RACE_CALLS} calls (wrapper, CUDA events), "
                 f"device {device} per call (all kernels){own}")
@@ -960,12 +998,26 @@ def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
             return (time.perf_counter() - t0) * 1e3, 100
 
         _trace(torch, "100 single-scan linearizes", run, "call", "moments_", f"{root}_scan{ext}")
-    launches = FL.moments_launches
+        dense = routes(covs_all)["unary_dense_cuda"][0]
+
+        def run_dense():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                dense()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, 100
+
+        _trace(torch, "100 single-scan linearizes on K5", run_dense, "call", "unary_", f"{root}_dense{ext}")
+    launches, dense_launches = FL.moments_launches, FL.dense_launches
     log(f"[race] K4 launches {launches} for {calls['moments_fused']} vgicp_scan_linearize calls; "
-        f"K3 {FL.launches}, K1 {FL.unary_launches}")
+        f"K5 launches {dense_launches} for {calls['unary_dense_cuda']} probe_moments + "
+        f"linearize_vgicp_unary_dense calls; K3 {FL.launches}, K1 {FL.unary_launches}")
     if launches != calls["moments_fused"] or launches == 0:
         raise AssertionError(f"K4 launched {launches} times for {calls['moments_fused']} calls")
-    return {"launches": launches, "race": out}
+    if dense_launches != calls["unary_dense_cuda"] or dense_launches == 0:
+        raise AssertionError(f"K5 launched {dense_launches} times for {calls['unary_dense_cuda']} calls")
+    return {"launches": launches, "dense_launches": dense_launches, "race": out}
 
 
 def k2_bound_ms(args) -> tuple:
@@ -1190,11 +1242,108 @@ def phase_batch_race(torch, source, vmap, profile: Optional[str]) -> dict:
     return out
 
 
+def phase_k5(torch, source, maps, T_reg) -> dict:
+    """K5 against its plain version and, on the source block, against K1,
+    on scan 1 (`source`, moved back by the true prior) against scan 0's
+    leaf-1.0 map (`maps[-1]`) and on the stride-8 stage against the leaf-4
+    map (`maps[0]`): the tails of the dense view, both modes, both gates,
+    half masks, at the identity, at K1_TWIST's pose and at `T_reg`, the
+    card's registration of scan 1. Each case calls K5 twice with no host
+    read allowed, and the two calls must agree bit for bit. Then times and
+    device us per launch pair beside K1's, on bench.py's race case (N = 25088,
+    covariances, min_voxel_points 1) and at N = 1, 8 and the stride-8 stage."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.registration.pyramid import _source_planar
+    from gtsam_points_tpu_torch.utils import se3
+
+    pts_all, covs_all = (t.contiguous() for t in _source_planar(source))
+    n_all = pts_all.shape[1]
+    half = torch.rand(n_all, generator=torch.Generator(device="cuda").manual_seed(6), device="cuda") > 0.5
+    poses = {
+        "identity": torch.eye(4, device="cuda"),
+        "twist": se3.se3_exp(torch.tensor(K1_TWIST)).to("cuda", torch.float32).contiguous(),
+        "registered": T_reg.contiguous(),
+    }
+
+    def k5_args(pose="twist", n=None, covs=True, mvp=1.0, half_mask=False, stride=1):
+        """K5's inputs as bench.py's `unary_dense` route makes them: every
+        plane contiguous, the moment rows of a probe at the pose."""
+        cut = slice(0, n, stride)
+        pts = pts_all[:, cut].contiguous()
+        momT, found = FL.probe_moments(maps[0] if stride == 8 else maps[-1], pts, source.mask[cut], poses[pose])
+        if half_mask:
+            found = found & half[cut]
+        return (pts, momT, found, poses[pose], mvp, 1e-3, covs_all[:, cut].contiguous() if covs else None)
+
+    cases = [(f"N={n_all} {'covs' if c else 'eps'} {k}", dict(pose=k, covs=c)) for k in poses for c in (True, False)]
+    cases += [(f"N={n} covs twist", dict(n=n)) for n in (1, 7, 8, 3136, 4095, 4096, 4097, n_all - 1)]
+    cases += [(f"N={n} eps twist", dict(n=n, covs=False)) for n in (1, 7, 4097)]
+    cases += [
+        (f"N={n_all} covs twist min_voxel_points 3 (tpu_parity's dense gate)", dict(mvp=3.0)),
+        (f"N={n_all} eps twist min_voxel_points 3", dict(mvp=3.0, covs=False)),
+        (f"N={n_all} covs half-mask twist", dict(half_mask=True)),
+        (f"N={n_all} eps half-mask registered", dict(pose="registered", covs=False, half_mask=True)),
+        (f"N={n_all} covs half-mask identity min_voxel_points 3", dict(pose="identity", half_mask=True, mvp=3.0)),
+        ("stride 8 leaf 4 covs twist", dict(stride=8)),
+        ("stride 8 leaf 4 eps registered", dict(stride=8, covs=False, pose="registered")),
+    ]
+    strided = k5_args(stride=8)
+    try:
+        FL.linearize_vgicp_unary_dense_cuda(pts_all[:, ::8], *strided[1:])
+        raise AssertionError("K5's wrapper took a non-contiguous source")
+    except ValueError as e:
+        if "contiguous" not in str(e):
+            raise
+    for name, kw in cases:
+        args = k5_args(**kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host read inside raises
+        try:
+            lin = FL.linearize_vgicp_unary_dense_cuda(*args)
+            again = FL.linearize_vgicp_unary_dense_cuda(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref = FL.linearize_vgicp_unary_dense_plain(*args)
+        k1 = FL.linearize_vgicp_unary_cuda(*args)
+        torch.cuda.synchronize()
+        _check_close(torch, f"[k5] {name}: K5 vs plain", lin, ref, K1_TOL)
+        _check_close(torch, f"[k5] {name}: K5 vs K1, source block", _source_block(lin), _source_block(k1), K1_TOL)
+        differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(lin, again))
+        log(f"[k5] {name}: two K5 calls differ in {differ} values (must be 0)")
+        if differ:
+            raise AssertionError(f"two K5 calls on the same input differ ({name})")
+
+    out = {}
+    for key, kw in (("main", {}), ("stride8", dict(stride=8)), ("N=8", dict(n=8)), ("N=1", dict(n=1))):
+        args = k5_args(**kw)
+        lin = FL.linearize_vgicp_unary_dense_cuda(*args)
+        abs_err, _ = _max_err(torch, lin, FL.linearize_vgicp_unary_dense_plain(*args))
+        bound, bound_by = k1_bound_ms(args + (None,))
+        r = {
+            "n": args[0].shape[1],
+            "max_abs_err": abs_err,
+            "ms": _median_ms(torch, lambda: FL.linearize_vgicp_unary_dense_cuda(*args)),
+            "plain_ms": _median_ms(torch, lambda: FL.linearize_vgicp_unary_dense_plain(*args)),
+            "device_us": _device_us_per_call(torch, lambda: FL.linearize_vgicp_unary_dense_cuda(*args), "unary_"),
+            "k1_device_us": _device_us_per_call(torch, lambda: FL.linearize_vgicp_unary_cuda(*args), "unary_"),
+            "bound_ms": bound,
+            "bound_by": bound_by,
+        }
+        device, k1_device = ("not measured" if v is None else f"{v:.3f} us" for v in (r["device_us"], r["k1_device_us"]))
+        log(f"[k5] {key} (N={r['n']}, {FL.unary_dense_num_blocks(r['n'])} blocks): kernel {r['ms']:.4f} ms (wrapper, "
+            f"CUDA events), device {device} per launch pair, K1 {k1_device} per launch pair on the same inputs, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); no single "
+            "PyTorch call computes this function")
+        out[key] = r
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
-                        help="profile three steps, the pyramid, the single-scan linearize and the "
-                             "batched linearize, tables to PATH, PATH_pyramid, PATH_scan and PATH_batch")
+                        help="profile three steps, the pyramid, the single-scan linearize on K4 and on K5 "
+                             "and the batched linearize, tables to PATH, PATH_pyramid, PATH_scan, PATH_dense "
+                             "and PATH_batch")
     args = parser.parse_args()
 
     import torch
@@ -1221,6 +1370,7 @@ def main() -> int:
     race = phase_race(torch, source, maps[-1], args.profile)
     phase_k2(torch, source, maps[-1], pyramid["poses"][0])
     batch = phase_batch_race(torch, source, maps[-1], args.profile)
+    k5 = phase_k5(torch, source, maps, pyramid["poses"][0])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -1270,6 +1420,18 @@ def main() -> int:
         "plain_ms": batch["race"]["unary_batch_plain covs"]["ms"],
         "bound_ms": batch["bound_ms"],
         "bound_by": batch["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "vgicp_unary_dense",
+        "route": "cuda",
+        "source": "gtsam_points_tpu_torch/csrc/vgicp_unary_dense.cu",
+        "replaces": "gtsam_points_tpu/ops/pallas_linearize.py:817",
+        "launches": race["dense_launches"],
+        "max_abs_err": k5["main"]["max_abs_err"],
+        "ms": k5["main"]["ms"],
+        "plain_ms": k5["main"]["plain_ms"],
+        "bound_ms": k5["main"]["bound_ms"],
+        "bound_by": k5["main"]["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 Each source under `csrc/` has a plain C interface. It is compiled with nvcc
 for sm_90a into `build/kernels/` at the root of the checkout, on first use,
 and loaded with ctypes. The library's file name carries a digest of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing is built when this module is imported.
+source, of every header under `csrc/` (`*.cuh`, which a source may include)
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # every kernel source of the package, by stem of csrc/<name>.cu
-SOURCES = ("linearize_fused", "vgicp_unary", "vgicp_moments")
+SOURCES = ("linearize_fused", "vgicp_unary", "vgicp_moments", "vgicp_unary_dense")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,9 +44,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """build/kernels/lib<name>-<digest>.so, the digest over csrc/<name>.cu,
+    every csrc/*.cuh by name and content, and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc(name: str, out: Path, verbose: bool = False) -> subprocess.Popen:

@@ -24,14 +24,20 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
   csrc/vgicp_moments.cu (or raises); on a CPU tensor it takes
   `linearize_vgicp_moments_plain`, the port of `linearize_vgicp_moments_xla`.
   `vgicp_scan_linearize` is the single-scan entry point: probe, then K4.
+- K5, `linearize_vgicp_unary_dense`: K1's contract without weights, over
+  the dense [8, N/8] view of the planes, eight points a thread. On a CUDA
+  tensor it launches csrc/vgicp_unary_dense.cu (or raises); on a CPU tensor
+  it takes `linearize_vgicp_unary_dense_plain`, which is K1's plain version
+  (called without weights), as the reference falls back to the same XLA
+  twin off the TPU.
 - `probe_moments`: transform + hash probe -> the raw moment rows K1 and K4 read.
   The reference selects the matched record with two 0/1 matmuls, a TPU
   device whose sums hold exactly one nonzero term; here the record picked by
   `table_probe` is used directly, which gives the same rows.
 
-`launches`, `unary_launches`, `unary_batch_launches` and `moments_launches`
-count the kernel launches of K3, K1, K2 and K4, so a run can show that its
-main path went through the kernels.
+`launches`, `unary_launches`, `unary_batch_launches`, `moments_launches` and
+`dense_launches` count the kernel launches of K3, K1, K2, K4 and K5, so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ launches = 0
 unary_launches = 0
 unary_batch_launches = 0
 moments_launches = 0
+dense_launches = 0
 
 _THREADS = 256  # csrc/linearize_fused.cu kThreads
 _OUT = 92  # 78 upper-triangle H entries, 12 g, err, count
@@ -225,6 +232,24 @@ def _unpack_unary(col: torch.Tensor) -> Linearized:
     )
 
 
+def _check_unary(p_src, momT, found, delta, src_covs6, weights=None, contiguous: bool = True) -> int:
+    """Shapes, dtypes and one device of K1's and K5's inputs; contiguity only
+    for the kernels. -> N"""
+    dev = p_src.device
+    if p_src.dim() != 2:
+        raise ValueError(f"p_src has shape {tuple(p_src.shape)}, expected [3, N]")
+    n = p_src.shape[1]
+    _check("p_src", p_src, (3, n), torch.float32, dev, contiguous)
+    _check("momT", momT, (10, n), torch.float32, dev, contiguous)
+    _check("found", found, (n,), torch.bool, dev, contiguous)
+    _check("delta", delta, (4, 4), torch.float32, dev, contiguous)
+    if src_covs6 is not None:
+        _check("src_covs6", src_covs6, (6, n), torch.float32, dev, contiguous)
+    if weights is not None:
+        _check("weights", weights, (n,), torch.float32, dev, contiguous)
+    return n
+
+
 def linearize_vgicp_unary_cuda(
     p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None
 ) -> Linearized:
@@ -235,15 +260,7 @@ def linearize_vgicp_unary_cuda(
     dev = p_src.device
     if dev.type != "cuda":
         raise ValueError(f"linearize_vgicp_unary_cuda needs CUDA tensors, got {dev}")
-    n = p_src.shape[-1]
-    _check("p_src", p_src, (3, n), torch.float32, dev)
-    _check("momT", momT, (10, n), torch.float32, dev)
-    _check("found", found, (n,), torch.bool, dev)
-    _check("delta", delta, (4, 4), torch.float32, dev)
-    if src_covs6 is not None:
-        _check("src_covs6", src_covs6, (6, n), torch.float32, dev)
-    if weights is not None:
-        _check("weights", weights, (n,), torch.float32, dev)
+    n = _check_unary(p_src, momT, found, delta, src_covs6, weights)
     fn = _unary_library()
     blocks = unary_num_blocks(n)
     partial = torch.empty((blocks, _UNARY_OUT), dtype=torch.float32, device=dev)
@@ -353,6 +370,88 @@ def probe_moments(vmap: GaussianVoxelMap, p_src: torch.Tensor, mask: torch.Tenso
     keys = vk.point_keys_planar(pm, mask, vmap.leaf)
     _, found, pick, _ = table_probe(vmap.table, keys)
     return pick[:, 2:12].T.contiguous(), found & mask
+
+
+# ---------------------------------------------------------------------------
+# K5: K1's sums without weights over the dense view
+# ---------------------------------------------------------------------------
+
+_DENSE_THREADS = 128  # csrc/vgicp_unary_dense.cu kThreads
+_DENSE_ROWS = 8  # its kRows: the rows of the dense view, points a thread
+
+
+def unary_dense_num_blocks(n: int) -> int:
+    """K5's grid for n >= 1 points: one thread a column of the [8, ceil(n/8)]
+    view, _DENSE_THREADS columns a block."""
+    cols = -(-n // _DENSE_ROWS)
+    return -(-cols // _DENSE_THREADS)
+
+
+def _unary_dense_library():
+    """K5's launcher, csrc/vgicp_unary_dense.cu."""
+    lib = _build.load("vgicp_unary_dense")
+    fn = lib.gpt_vgicp_unary_dense
+    if fn.argtypes is None:  # first use in this process
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        if (lib.gpt_vgicp_unary_dense_out_len() != _UNARY_OUT
+                or lib.gpt_vgicp_unary_dense_threads() != _DENSE_THREADS
+                or lib.gpt_vgicp_unary_dense_rows() != _DENSE_ROWS):
+            raise RuntimeError("csrc/vgicp_unary_dense.cu does not match its wrapper")
+    return fn
+
+
+def linearize_vgicp_unary_dense_cuda(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """Launch the Hopper kernel. Inputs: p_src [3, N] with N >= 1, momT
+    [10, N], found [N] bool, delta [4, 4], src_covs6 [6, N] or None, all f32
+    (but found) and contiguous on one CUDA device."""
+    global dense_launches
+    n = _check_unary(p_src, momT, found, delta, src_covs6)
+    dev = p_src.device
+    if dev.type != "cuda":
+        raise ValueError(f"linearize_vgicp_unary_dense_cuda needs CUDA tensors, got {dev}")
+    if n < 1:
+        raise ValueError("linearize_vgicp_unary_dense_cuda needs at least one point")
+    fn = _unary_dense_library()
+    blocks = unary_dense_num_blocks(n)
+    partial = torch.empty((blocks, _UNARY_OUT), dtype=torch.float32, device=dev)
+    out = torch.empty((_UNARY_OUT,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            p_src.data_ptr(), momT.data_ptr(), found.data_ptr(),
+            None if src_covs6 is None else src_covs6.data_ptr(),
+            delta.data_ptr(), float(min_voxel_points), float(eps),
+            partial.data_ptr(), out.data_ptr(), n, blocks, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"vgicp_unary_dense kernel launch failed with CUDA error {err}")
+    dense_launches += 1
+    return _unpack_unary(out)
+
+
+# The same function in plain PyTorch, on any device: K1's plain version,
+# called without weights, as the reference takes `linearize_vgicp_unary_xla`
+# for K5 off the TPU.
+linearize_vgicp_unary_dense_plain = linearize_vgicp_unary_plain
+
+
+def linearize_vgicp_unary_dense(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """Unary VGICP linearize over the dense view: K1's contract
+    (`linearize_vgicp_unary`) without weights. -> Linearized with H_ss, b_s,
+    error and num_inliers set and zero target blocks. CUDA tensors go to the
+    kernel, CPU tensors to the plain version."""
+    if p_src.device.type == "cpu":
+        _check_unary(p_src, momT, found, delta, src_covs6, contiguous=False)
+        return linearize_vgicp_unary_dense_plain(p_src, momT, found, delta, min_voxel_points, eps, src_covs6)
+    return linearize_vgicp_unary_dense_cuda(p_src, momT, found, delta, min_voxel_points, eps, src_covs6)
 
 
 # ---------------------------------------------------------------------------

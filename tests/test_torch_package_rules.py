@@ -46,7 +46,7 @@ def test_package_imports_without_jax():
 
 def test_no_source_names_jax_or_the_jax_package():
     banned = re.compile(r"^\s*(import jax|from jax)|gtsam_points_tpu\.", re.M)
-    sources = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+    sources = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
     assert len(sources) >= 20
     for path in sources:
         assert not banned.search(path.read_text()), path
@@ -78,9 +78,13 @@ def test_float32_pins():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-def test_kernel_build_is_deferred_and_keyed_by_source():
-    """Importing builds nothing; the library name carries the source digest
-    and lives in build/kernels/ (which .gitignore lists)."""
+def test_kernel_build_is_deferred_and_keyed_by_source(monkeypatch, tmp_path):
+    """Importing builds nothing; the library name carries the digest of the
+    source and of every csrc/*.cuh header, and lives in build/kernels/
+    (which .gitignore lists). Editing a header or a source changes the name,
+    so a stale library is never loaded."""
+    import shutil
+
     from gtsam_points_tpu_torch import _build
 
     path = _build.library_path("linearize_fused")
@@ -89,3 +93,19 @@ def test_kernel_build_is_deferred_and_keyed_by_source():
     assert "build/" in (REPO / ".gitignore").read_text().split()
     assert set(_build.SOURCES) == {p.stem for p in (PKG / "csrc").glob("*.cu")}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PKG / "csrc", csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    assert _build.library_path("vgicp_unary") == _build.library_path("vgicp_unary")
+    names = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert names["vgicp_unary"] == REPO / "build" / "kernels" / _build.library_path("vgicp_unary").name
+    header = csrc / "unary_point.cuh"
+    assert '#include "unary_point.cuh"' in (csrc / "vgicp_unary.cu").read_text()
+    assert '#include "unary_point.cuh"' in (csrc / "vgicp_unary_dense.cu").read_text()
+    header.write_text(header.read_text() + "// edited\n")
+    edited = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(edited[name] != names[name] for name in _build.SOURCES)
+    (csrc / "vgicp_moments.cu").write_text((csrc / "vgicp_moments.cu").read_text() + "// edited\n")
+    assert _build.library_path("vgicp_moments") != edited["vgicp_moments"]
+    assert _build.library_path("vgicp_unary") == edited["vgicp_unary"]
