@@ -11,17 +11,27 @@ Run from the root of a checkout:
                                               # ones; the tables go to out.txt,
                                               # out_pyramid.txt, out_scan.txt,
                                               # out_dense.txt, out_batch.txt
+    python3 chip_smoke.py --k3-witness TREE   # only K3 of the checkout at TREE
+                                              # on phase 3's payloads against
+                                              # float64 (an A/B of precision)
 
 Phases, each of which ends the run with a nonzero exit if it fails:
   1. environment: card name and power limit (nvidia-smi), torch version;
   2. build: every kernel source with nvcc for sm_90a, all at once, then once
      more one at a time into a scratch directory, for the two times;
-  3. K3 (csrc/linearize_fused.cu) against its plain PyTorch version on the
-     card at N = 1, 1000, 25000, 25001 and with half the mask False;
+  3. K3 (csrc/linearize_fused.cu) against its plain PyTorch version (the
+     92 direct sums) and against the plain version of its own arithmetic
+     (29 source-frame sums, then the expansion) on the card at N = 1, 1000,
+     25000, 25001, with half the mask False, far from the origin (|t| = 50
+     m, points 30 m out) and near the optimum (mu = R p + t + 0.01 noise);
+     two calls equal bit for bit; all three against the direct sums in
+     float64, recorded and not gated;
   4. the odometry path at a real size: point-path VGICP scan-to-map odometry
      with 25k-point scans of a 400k-point ring world into the default
      262144-voxel map, through init_odometry and make_odometry_stepper; K3's
-     launch count must rise by at least one per LM outer iteration;
+     launch count must rise by at least one per LM outer iteration; K3's
+     device us per launch pair at the path's own shape and on phase 3's N =
+     1 and N = 25000 payloads, taken after the step times;
   5. five steps through the CUDA path and through the plain path on the card,
      held to a stated bound per pose;
   6. the pyramid's inputs (scan 0's DEFAULT_STAGES pyramid, scan 1 with its
@@ -56,13 +66,18 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      the plain point system (bench.py's `planar_xla`); with and without
      source covariances; the routes' systems held to each other; K4's and
      K5's launches equal to their routes' calls;
- 11. K2 (the second entry point of csrc/vgicp_unary.cu) against its plain
-     PyTorch version, and lane by lane against K1 on the lane's inputs bit
-     for bit, on scan 1 against scan 0's leaf-1.0 map, each lane with the
-     moment rows of its own probe: B = 1, 2, 64; N = 1, 1000, 25087, 25088;
-     with and without source covariances; a different half of the found
-     flags cleared in each lane; lanes at tpu_parity's poses, at the
-     identity, and spread around the pose phase 8 registered;
+ 11. K2 (csrc/vgicp_unary_batch.cu) against its plain PyTorch version and,
+     lane by lane, against K1 on the lane's inputs, both within K1_TOL;
+     against itself launched on each lane alone (B = 1), bit for bit; and
+     two calls on the same input, bit for bit; on scan 1 against scan 0's
+     leaf-1.0 map, each lane with the moment rows of its own probe: B = 1,
+     2, 64; N = 1, 1000, 25087, 25088; with and without source covariances;
+     a different half of the found flags cleared in each lane; lanes at
+     tpu_parity's poses, at the identity, and spread around the pose phase
+     8 registered; then K2's two load paths at B = 64, N = 25088, with and
+     without source covariances: 16-byte loads, and guarded scalar loads on
+     a copy of momT_b 4 bytes off a 16-byte boundary, equal bit for bit,
+     each with its device us per launch pair;
  12. the batched linearize at a real size, the race of tpu_parity's batched
      dispatch gate: B = 64 lanes over scan 1 (N = 25088), K2 against K1
      launched once per lane and the plain vmapped version, with and without
@@ -105,9 +120,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
 # K3 fp32 operations per masked-in point, counted from csrc/linearize_fused.cu:
+# q = R p 15, residual 6, u = W r 15, skew(q) W 27, h11 18, q x u 9, error 5,
+# 29 sums (the 29 -> 92 expansion is done once a call).
+K3_FLOPS_PER_POINT = 124
+# The 92 direct sums per point, as K4 computes them (csrc/vgicp_moments.cu):
 # transform 18, residual 3, -R skew(p) 27, W r 15, W J 180, H upper triangle
 # 78 x 6 = 468, g 12 x 6 = 72, error 6, count 1.
-K3_FLOPS_PER_POINT = 790
+DIRECT_FLOPS_PER_POINT = 790
 K3_BYTES_PER_POINT = 12 + 12 + 24 + 1  # p, mu, W6 (f32) and the mask byte
 # K1 fp32 operations per point that passes its gate, counted from
 # csrc/vgicp_unary.cu: moment finalize 22, Rᵀ C_t R 75, + C_s 6, inverse and
@@ -188,15 +207,16 @@ K1_TWIST = [0.01, -0.02, 0.015, 0.1, -0.05, 0.08]
 # error over max|ref| per field; the inlier counts exactly
 K4_TOL = 1e-4
 # K4 fp32 operations per point that passes its gate, counted from
-# csrc/vgicp_moments.cu: K3's 790 on the system, the moment finalize 22, the
-# 3x3 inverse 45, and R C_s Rᵀ + C_t 81 (3 for eps I).
-K4_FLOPS_PER_POINT = {True: K3_FLOPS_PER_POINT + 22 + 45 + 81, False: K3_FLOPS_PER_POINT + 22 + 45 + 3}
+# csrc/vgicp_moments.cu: the 790 of the direct sums, the moment finalize 22,
+# the 3x3 inverse 45, and R C_s Rᵀ + C_t 81 (3 for eps I).
+K4_FLOPS_PER_POINT = {True: DIRECT_FLOPS_PER_POINT + 22 + 45 + 81, False: DIRECT_FLOPS_PER_POINT + 22 + 45 + 3}
 RACE_CALLS = 200
 # K2 (the batched unary linearize) raced as the batched dispatch gate of
 # scripts/tpu_parity.py races it: B = 64 lanes over one 25088-slot source,
 # min_voxel_points 3 and eps 1e-3, lane b at se3_exp(K1_TWIST) with its
-# x translation raised by 1e-6 b. K2 is held to its plain version at K1_TOL
-# and, lane by lane, to K1 bit for bit.
+# x translation raised by 1e-6 b. K2 is held to its plain version and, lane
+# by lane, to K1 at K1_TOL; to itself launched lane by lane, and to a second
+# call, bit for bit.
 K2_LANES = 64
 K2_MIN_POINTS = 3.0
 # the spread lanes: the registered pose times se3_exp(uniform(-0.1, 0.1, 6))
@@ -249,25 +269,48 @@ def phase_build() -> None:
         + ", ".join(f"{k} {v:.3f} s" for k, v in one_by_one.items()) + ")")
 
 
-def _k3_payload(torch, n: int, seed: int, half_mask: bool = False):
-    """Random planar payload like tests/test_pallas_linearize.py's, on the card."""
+# Phase 3's payloads, (N, half the mask False, kind); the i-th has seed 10 + i.
+K3_CASES = [(1, False, "random"), (1000, False, "random"), (25_000, False, "random"), (25_001, False, "random"),
+            (25_000, True, "random"), (25_000, False, "far"), (25_000, True, "far"), (25_000, False, "near")]
+
+
+def _float64(args):
+    """The floating-point tensors of `args` in float64, the rest as they are."""
+    return tuple(a.double() if a.is_floating_point() else a for a in args)
+
+
+def _k3_payload(torch, n: int, seed: int, half_mask: bool = False, kind: str = "random"):
+    """Planar payload on the card, as tests/test_torch_k3_source.py makes it:
+    "random" is tests/test_pallas_linearize.py's (mu near p, large
+    residuals); "far" puts the points 30 m from the sensor at |t| = 50 m with
+    mu = R p + t + 0.1 noise; "near" has |t| = 20 m and mu = R p + t + 0.01
+    noise, near the optimum, where the gradient is a small sum of large
+    terms."""
     import numpy as np
 
     from gtsam_points_tpu_torch.utils import se3
 
     rng = np.random.RandomState(seed)
-    p = rng.randn(3, n).astype(np.float32) * 5
-    mu = p + rng.randn(3, n).astype(np.float32) * 0.1
+    if kind == "random":
+        p = rng.randn(3, n).astype(np.float32) * 5
+        trans = [0.4, -0.2, 0.3]
+    else:
+        d = rng.randn(3, n)
+        radius = 30.0 if kind == "far" else 1.0 + rng.rand(n) * 29.0
+        p = (d / np.linalg.norm(d, axis=0) * radius).astype(np.float32)
+        trans = [30.0, -40.0, 0.0] if kind == "far" else [12.0, -16.0, 0.0]
+    delta = se3.se3_exp(torch.tensor([0.03, -0.02, 0.05] + trans)).to(torch.float32).numpy()
+    if kind == "random":
+        mu = p + rng.randn(3, n).astype(np.float32) * 0.1
+    else:
+        noise = 0.1 if kind == "far" else 0.01
+        mu = (delta[:3, :3] @ p + delta[:3, 3:] + rng.randn(3, n) * noise).astype(np.float32)
     A = rng.randn(n, 3, 3).astype(np.float32)
     W = np.einsum("nij,nkj->nik", A, A) + np.eye(3, dtype=np.float32) * 0.1
     W6 = np.stack([W[:, 0, 0], W[:, 0, 1], W[:, 0, 2], W[:, 1, 1], W[:, 1, 2], W[:, 2, 2]])
     mask = rng.rand(n) > (0.5 if half_mask else 0.0)
-    xi = torch.tensor([0.03, -0.02, 0.05, 0.4, -0.2, 0.3])
-    delta = se3.se3_exp(xi).to(torch.float32)
     dev = torch.device("cuda")
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (p, mu, W6, mask)
-    ) + (delta.to(dev).contiguous(),)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (p, mu, W6, mask, delta))
 
 
 def _max_err(torch, lin, ref):
@@ -305,14 +348,23 @@ def k3_bound_ms(n: int, n_valid: int) -> tuple:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def measure_k3(torch, args) -> dict:
-    """Kernel vs plain on one payload: error, median times and the bound."""
+def measure_k3(torch, args, device: bool) -> dict:
+    """Kernel vs plain (the direct sums) and vs the plain version of its own
+    arithmetic (`linearize_fused_source_plain`) on one payload: errors, each
+    of the three against the direct sums in float64, two kernel calls
+    compared bit for bit, median times, the bound and, with `device`, the
+    device us per launch pair from a profiler trace."""
     from gtsam_points_tpu_torch.ops import fused_linearize as FL
 
     lin = FL.linearize_fused_cuda(*args)
+    again = FL.linearize_fused_cuda(*args)
     ref = FL.linearize_fused_plain(*args)
+    mirror = FL.linearize_fused_source_plain(*args)
+    ref64 = FL.linearize_fused_plain(*_float64(args))
     torch.cuda.synchronize()
     abs_err, rel_err = _max_err(torch, lin, ref)
+    _, mirror_rel = _max_err(torch, lin, mirror)
+    differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(lin, again))
     n, n_valid = args[0].shape[1], int(args[3].sum())
     bound, bound_by = k3_bound_ms(n, n_valid)
     return {
@@ -320,27 +372,70 @@ def measure_k3(torch, args) -> dict:
         "n_valid": n_valid,
         "max_abs_err": abs_err,
         "rel_err": rel_err,
+        "mirror_rel_err": mirror_rel,
+        "f64_rel_err": {name: _max_err(torch, x, ref64)[1] for name, x in (("K3", lin), ("plain", ref),
+                                                                           ("own arithmetic's plain", mirror))},
+        "calls_differ": differ,
         "ms": _median_ms(torch, lambda: FL.linearize_fused_cuda(*args)),
         "plain_ms": _median_ms(torch, lambda: FL.linearize_fused_plain(*args)),
+        "device_us": _device_us_per_call(torch, lambda: FL.linearize_fused_cuda(*args), "linearize_")
+        if device else None,
         "bound_ms": bound,
         "bound_by": bound_by,
     }
 
 
-def phase_k3(torch) -> None:
-    cases = [(1, False), (1000, False), (25_000, False), (25_001, False), (25_000, True)]
-    for i, (n, half) in enumerate(cases):
-        r = measure_k3(torch, _k3_payload(torch, n, seed=10 + i, half_mask=half))
-        ok = r["rel_err"] <= 1e-4
-        log(
-            f"[k3] N={n}{' half-mask' if half else ''} valid={r['n_valid']} "
-            f"max_abs_err={r['max_abs_err']:.3e} err/max|ref|={r['rel_err']:.3e} (tol 1e-4) "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-            f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); "
-            "no single PyTorch call computes this function"
-        )
-        if not ok:
-            raise AssertionError(f"K3 disagrees with its plain version at N={n}")
+def _check_k3(label: str, r: dict) -> None:
+    """Log one measure_k3 result; fail on an error over 1e-4 x max|ref| or
+    on two calls that differ."""
+    device = "not measured" if r["device_us"] is None else f"{r['device_us']:.3f} us"
+    log(
+        f"{label} valid={r['n_valid']} max_abs_err={r['max_abs_err']:.3e} err/max|ref|={r['rel_err']:.3e} "
+        f"(tol 1e-4), vs its own arithmetic's plain version {r['mirror_rel_err']:.3e} (tol 1e-4), two calls "
+        f"differ in {r['calls_differ']} values (must be 0); against float64 (recorded, not gated): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in r["f64_rel_err"].items())
+        + f"; kernel {r['ms']:.4f} ms, device {device} per "
+        f"launch pair, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); "
+        "no single PyTorch call computes this function"
+    )
+    if r["rel_err"] > 1e-4 or r["mirror_rel_err"] > 1e-4:
+        raise AssertionError(f"K3 disagrees with its plain version ({label})")
+    if r["calls_differ"]:
+        raise AssertionError(f"two K3 calls on the same input differ ({label})")
+
+
+def phase_k3(torch) -> dict:
+    """K3 against its plain versions on every payload. No profiler runs here:
+    once it has traced, every later launch in the process is slower on the
+    host, which would move phase 4's step times; the device us per launch
+    pair of the N = 1 and N = 25000 payloads are taken after them (phase 4).
+    -> those two payloads by name."""
+    later = {}
+    for i, (n, half, kind) in enumerate(K3_CASES):
+        args = _k3_payload(torch, n, seed=10 + i, half_mask=half, kind=kind)
+        _check_k3(f"[k3] N={n} {kind}{' half-mask' if half else ''}", measure_k3(torch, args, device=False))
+        if kind == "random" and not half and n in (1, 25_000):
+            later[f"N={n}"] = args
+    return later
+
+
+def k3_witness(torch, tree: str) -> None:
+    """--k3-witness: the K3 of the checkout at `tree` (this commit's, or
+    another's unpacked into a directory that .gitignore lists) on phase 3's
+    payloads, held to nothing: its error and the float32 plain version's
+    against the direct sums in float64, so that two commits' K3 can be read
+    side by side in one chip call. It uses only `linearize_fused_cuda` and
+    `linearize_fused_plain`, which every commit of the port has."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+
+    for i, (n, half, kind) in enumerate(K3_CASES):
+        args = _k3_payload(torch, n, seed=10 + i, half_mask=half, kind=kind)
+        lin, ref = FL.linearize_fused_cuda(*args), FL.linearize_fused_plain(*args)
+        ref64 = FL.linearize_fused_plain(*_float64(args))
+        torch.cuda.synchronize()
+        log(f"[k3-witness] {tree} N={n} {kind}{' half-mask' if half else ''}: err/max|ref| against float64: "
+            f"K3 {_max_err(torch, lin, ref64)[1]:.3e}, plain {_max_err(torch, ref, ref64)[1]:.3e}; "
+            f"K3 vs plain {_max_err(torch, lin, ref)[1]:.3e}")
 
 
 def _zero_counts(FL) -> None:
@@ -398,7 +493,7 @@ def _run_odometry(torch, frames, priors, steps: int):
     return state, torch.stack(poses), iters, step_ms, merges
 
 
-def phase_main_path(torch, profile: Optional[str]):
+def phase_main_path(torch, profile: Optional[str], k3_payloads: dict):
     import numpy as np
 
     from gtsam_points_tpu_torch.factors.vgicp import VGICPFactor
@@ -449,12 +544,12 @@ def phase_main_path(torch, profile: Optional[str]):
     found, mu, W6 = factor.correspondences(pose)
     pts_p, _ = factor._source_planar
     args = (pts_p, mu.contiguous(), W6.contiguous(), found.contiguous(), poses[-1].contiguous())
-    r = measure_k3(torch, args)
-    log(f"[main] K3 at the main path's shape N={r['n']} (valid {r['n_valid']}): "
-        f"max_abs_err {r['max_abs_err']:.3e} err/max|ref| {r['rel_err']:.3e}; kernel {r['ms']:.4f} ms, "
-        f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})")
-    if r["rel_err"] > 1e-4:
-        raise AssertionError("K3 disagrees with its plain version at the main path's shape")
+    r = measure_k3(torch, args, device=True)
+    _check_k3(f"[main] K3 at the main path's shape N={r['n']}", r)
+    for name, payload in k3_payloads.items():
+        us = _device_us_per_call(torch, lambda: FL.linearize_fused_cuda(*payload), "linearize_")
+        log(f"[main] K3 on phase 3's {name} payload: device "
+            f"{'not measured' if us is None else f'{us:.3f} us'} per launch pair")
     r["launches"] = launches
     return scans, frames, priors, r
 
@@ -477,10 +572,13 @@ def _trace(torch, label: str, run, unit: str, key: str, path: str) -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == kernel_type]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     key_ms = sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
+    key_pairs = sum(e.count for e in kernels if key in e.key) / 2  # partial + final
     n_kernels = sum(e.count for e in kernels)
+    per_pair = f"{key_ms * 1e3 / key_pairs:.3f} us" if key_pairs else "not measured"
     log(f"[profile] the same {label} traced with device activity only: wall {traced_ms:.3f} ms, "
         f"device kernel time {device_ms:.3f} ms, busy {100 * device_ms / traced_ms:.2f}% of the traced "
-        f"wall; {n_kernels} kernels ({n_kernels / units:.1f} per {unit}), '{key}' kernels {key_ms:.3f} ms")
+        f"wall; {n_kernels} kernels ({n_kernels / units:.1f} per {unit}), '{key}' kernels {key_ms:.3f} ms "
+        f"in {key_pairs:g} launch pairs, {per_pair} per pair")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         host_ms, units = run()
@@ -1106,11 +1204,17 @@ def _k1_lanes(torch, args):
 
 def phase_k2(torch, source, vmap, T_reg) -> None:
     """K2 against its plain version and, lane by lane, against K1 on the
-    lane's own inputs, on scan 1 (`source`) against scan 0's leaf-1.0 map:
-    B = 1, 2 and 64; N = 1, 1000, 25087 and 25088; with and without source
-    covariances; a different half of the found flags cleared in each lane;
-    lanes at tpu_parity's poses, at the identity, and spread around `T_reg`,
-    the card's registration of scan 1."""
+    lane's own inputs, both at K1_TOL; against K2 launched on each lane
+    alone (B = 1) and against a second K2 call, both bit for bit; on scan 1
+    (`source`) against scan 0's leaf-1.0 map: B = 1, 2 and 64; N = 1, 1000,
+    25087 and 25088; with and without source covariances; a different half
+    of the found flags cleared in each lane; lanes at tpu_parity's poses, at
+    the identity, and spread around `T_reg`, the card's registration of scan
+    1. (K2 sums in its own order, so K1's bits are not its bits.) Then its
+    16-byte and scalar load paths on the same values, bit for bit, each
+    with its device us per launch pair."""
+    from gtsam_points_tpu_torch.factors.linearized import Linearized
+
     from gtsam_points_tpu_torch.ops import fused_linearize as FL
     from gtsam_points_tpu_torch.registration.pyramid import _source_planar
 
@@ -1141,19 +1245,51 @@ def phase_k2(torch, source, vmap, T_reg) -> None:
         raise AssertionError("K2's wrapper took an expanded momT_b")
     except ValueError:
         pass
+    def bits_differ(x, y) -> int:
+        """Lane-fields of two Linearized whose values differ in any bit."""
+        return sum(int((a.reshape(a.shape[0], -1).view(torch.int32) != b.reshape(b.shape[0], -1).view(torch.int32))
+                       .any(1).sum()) for a, b in zip(x, y))
+
     for name, kw in cases:
         a = args(**kw)
         lin = FL.linearize_vgicp_unary_batch_cuda(*a)
+        again = FL.linearize_vgicp_unary_batch_cuda(*a)
+        alone = Linearized(*(torch.cat(f) for f in zip(*(
+            FL.linearize_vgicp_unary_batch_cuda(a[0], a[1][b:b + 1], a[2][b:b + 1], a[3][b:b + 1], *a[4:])
+            for b in range(a[3].shape[0])))))
         ref = FL.linearize_vgicp_unary_batch_plain(*a)
         k1 = _k1_lanes(torch, a)
         torch.cuda.synchronize()
         _check_lanes(torch, f"[k2] {name}: K2 vs plain", lin, ref, K1_TOL)
-        lanes_differ = sum(int((x != y).reshape(x.shape[0], -1).any(1).sum()) for x, y in zip(lin, k1))
-        _, k1_rel = _lane_err(torch, lin, k1)
-        log(f"[k2] {name}: K2 vs K1 lane by lane: {lanes_differ} lane-fields differ in any bit "
-            f"(must be 0), err/max|ref| {k1_rel:.3e}")
-        if lanes_differ:
-            raise AssertionError(f"K2 differs from K1 on a lane's inputs ({name})")
+        _check_lanes(torch, f"[k2] {name}: K2 vs K1 lane by lane", lin, k1, K1_TOL)
+        alone_differ, again_differ = bits_differ(lin, alone), bits_differ(lin, again)
+        log(f"[k2] {name}: K2 vs K2 launched on each lane alone: {alone_differ} lane-fields differ in any bit "
+            f"(must be 0); two K2 calls: {again_differ} (must be 0)")
+        if alone_differ:
+            raise AssertionError(f"K2's lane depends on the lanes beside it ({name})")
+        if again_differ:
+            raise AssertionError(f"two K2 calls on the same input differ ({name})")
+
+    # The same values through K2's other load path: the kernel takes 16-byte
+    # loads only where N % 4 == 0 and every plane is 16-byte aligned, so a
+    # copy of momT_b 4 bytes off that boundary takes the guarded scalar loads.
+    for covs in (True, False):
+        a = args(covs=covs)
+        shifted = torch.empty(a[1].numel() + 1, dtype=torch.float32, device="cuda")[1:].view(a[1].shape)
+        shifted.copy_(a[1])
+        if a[1].data_ptr() % 16 or not shifted.data_ptr() % 16 or a[0].shape[1] % 4:
+            raise AssertionError("K2's load paths are not the ones meant")
+        paths = {"16-byte loads": a, "scalar loads": a[:1] + (shifted,) + a[2:]}
+        lins = [FL.linearize_vgicp_unary_batch_cuda(*x) for x in paths.values()]
+        torch.cuda.synchronize()
+        differ = bits_differ(*lins)
+        us = {k: _device_us_per_call(torch, lambda x=x: FL.linearize_vgicp_unary_batch_cuda(*x), "unary_batch_")
+              for k, x in paths.items()}
+        log(f"[k2] B={K2_LANES} N={n_all} {'covs' if covs else 'eps'}: load paths differ in {differ} lane-fields "
+            f"(must be 0); device per launch pair " + ", ".join(
+                f"{k} {'not measured' if v is None else f'{v:.3f} us'}" for k, v in us.items()))
+        if differ:
+            raise AssertionError("K2's two load paths disagree")
 
 
 def phase_batch_race(torch, source, vmap, profile: Optional[str]) -> dict:
@@ -1344,6 +1480,9 @@ def main() -> int:
                         help="profile three steps, the pyramid, the single-scan linearize on K4 and on K5 "
                              "and the batched linearize, tables to PATH, PATH_pyramid, PATH_scan, PATH_dense "
                              "and PATH_batch")
+    parser.add_argument("--k3-witness", metavar="TREE",
+                        help="only read the K3 of the checkout at TREE on phase 3's payloads against float64, "
+                             "then exit")
     args = parser.parse_args()
 
     import torch
@@ -1351,14 +1490,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    tree = os.path.abspath(args.k3_witness) if args.k3_witness else ROOT
+    sys.path.insert(0, tree)
     import gtsam_points_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    if args.k3_witness:
+        if not gtsam_points_tpu_torch.__file__.startswith(tree + os.sep):
+            raise RuntimeError(f"gtsam_points_tpu_torch came from {gtsam_points_tpu_torch.__file__}, not {tree}")
+        phase_environment(torch)
+        k3_witness(torch, args.k3_witness)
+        return 0
 
     t_start = time.perf_counter()
     kind = phase_environment(torch)
     phase_build()
-    phase_k3(torch)
-    scans, frames, priors, k3 = phase_main_path(torch, args.profile)
+    k3_payloads = phase_k3(torch)
+    scans, frames, priors, k3 = phase_main_path(torch, args.profile, k3_payloads)
     phase_plain_vs_cuda(torch, frames, priors)
     inputs = phase_pyramid_inputs(torch, scans, priors)
     k1 = phase_k1(torch, *inputs["card"][:2])
@@ -1412,7 +1559,7 @@ def main() -> int:
     }, {
         "name": "vgicp_unary_batch",
         "route": "cuda",
-        "source": "gtsam_points_tpu_torch/csrc/vgicp_unary.cu",
+        "source": "gtsam_points_tpu_torch/csrc/vgicp_unary_batch.cu",
         "replaces": "gtsam_points_tpu/ops/pallas_linearize.py:626",
         "launches": batch["launches"],
         "max_abs_err": batch["max_abs_err"],

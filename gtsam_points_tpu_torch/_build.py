@@ -24,7 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # every kernel source of the package, by stem of csrc/<name>.cu
-SOURCES = ("linearize_fused", "vgicp_unary", "vgicp_moments", "vgicp_unary_dense")
+SOURCES = ("linearize_fused", "vgicp_unary", "vgicp_moments", "vgicp_unary_dense", "vgicp_unary_batch")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

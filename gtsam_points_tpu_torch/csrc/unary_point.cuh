@@ -1,15 +1,18 @@
 // The per-point math of the unary VGICP linearize and its block-ordered
-// reduction, shared by K1 and K2 (csrc/vgicp_unary.cu) and K5
-// (csrc/vgicp_unary_dense.cu).
+// reduction, shared by K1 (csrc/vgicp_unary.cu), K2
+// (csrc/vgicp_unary_batch.cu) and K5 (csrc/vgicp_unary_dense.cu).
 //
 // It is the port of _unary_quantities in
 // gtsam_points_tpu/ops/pallas_linearize.py:656-735, which serves the three TPU
 // kernels alike. Keeping one copy keeps the FMA-free raw-moment differences
 // (sub_prod) and every other rounding the same in all three, so K1, K2 and K5
-// differ only in the order in which they sum the points. The reduction is
-// shared too: each block writes one row of partial sums (block_sum) and a
-// second kernel sums the rows in block order (unary_final), so every result
-// is deterministic without atomics.
+// differ only in the order in which they sum the points. The math takes its
+// inputs through an accessor (add_point_terms), so K1 and K5 read each value
+// from global memory where the math first needs it (add_point), while K2
+// hands over values it loaded ahead. The reduction is shared too: each block
+// writes one row of partial sums (block_sum); K1 and K5 sum the rows in block
+// order (unary_final), K2 with its own final pass. Every result is
+// deterministic without atomics.
 //
 // A library is keyed on its .cu file and every csrc/*.cuh (see _build.py), so
 // an edit here rebuilds each source that includes it.
@@ -35,26 +38,39 @@ __device__ __forceinline__ float sub_prod(float s, float a, float b) {
   return __fsub_rn(s, __fmul_rn(a, b));
 }
 
-// Adds point i's 29 terms into acc. m is the point's found flag times its
+// Point i of planar inputs with row stride n, read from global memory where
+// add_point_terms asks for a value (K1, K5).
+struct PlanarPoint {
+  const float* __restrict__ p;
+  const float* __restrict__ mom;
+  const float* __restrict__ sc;
+  int i;
+  int n;
+  __device__ __forceinline__ float mom_at(int k) const { return mom[k * n + i]; }
+  __device__ __forceinline__ float p_at(int k) const { return p[k * n + i]; }
+  __device__ __forceinline__ float sc_at(int k) const { return sc[k * n + i]; }
+};
+
+// Adds one point's 29 terms into acc. m is the point's found flag times its
 // weight; the point is skipped unless its voxel holds min_points and m > 0.
-// mom and sc are planar with row stride n.
-template <bool kSrcCovs>
-__device__ __forceinline__ void add_point(float (&acc)[kOut], const float (&R)[3][3], const float (&t)[3],
-                                          const float* __restrict__ p, const float* __restrict__ mom,
-                                          const float* __restrict__ sc, float m, float min_points,
-                                          float eps, int i, int n) {
-  const float cnt = mom[i];
+// `pt` gives the point's moment row (mom_at, k = 0..9), its coordinates
+// (p_at) and its source covariance (sc_at): PlanarPoint reads them from
+// global memory in this order, K2 hands over values it already holds.
+template <bool kSrcCovs, class Point>
+__device__ __forceinline__ void add_point_terms(float (&acc)[kOut], const float (&R)[3][3], const float (&t)[3],
+                                                const Point& pt, float m, float min_points, float eps) {
+  const float cnt = pt.mom_at(0);
   if (!(cnt >= min_points)) m = 0.0f;
   if (!(m > 0.0f)) return;
 
   const float safe = fmaxf(cnt, 1.0f);
-  const float mu0 = mom[n + i] / safe, mu1 = mom[2 * n + i] / safe, mu2 = mom[3 * n + i] / safe;
-  const float cxx = sub_prod(mom[4 * n + i] / safe, mu0, mu0);
-  const float cxy = sub_prod(mom[5 * n + i] / safe, mu0, mu1);
-  const float cxz = sub_prod(mom[6 * n + i] / safe, mu0, mu2);
-  const float cyy = sub_prod(mom[7 * n + i] / safe, mu1, mu1);
-  const float cyz = sub_prod(mom[8 * n + i] / safe, mu1, mu2);
-  const float czz = sub_prod(mom[9 * n + i] / safe, mu2, mu2);
+  const float mu0 = pt.mom_at(1) / safe, mu1 = pt.mom_at(2) / safe, mu2 = pt.mom_at(3) / safe;
+  const float cxx = sub_prod(pt.mom_at(4) / safe, mu0, mu0);
+  const float cxy = sub_prod(pt.mom_at(5) / safe, mu0, mu1);
+  const float cxz = sub_prod(pt.mom_at(6) / safe, mu0, mu2);
+  const float cyy = sub_prod(pt.mom_at(7) / safe, mu1, mu1);
+  const float cyz = sub_prod(pt.mom_at(8) / safe, mu1, mu2);
+  const float czz = sub_prod(pt.mom_at(9) / safe, mu2, mu2);
   const float Ct[3][3] = {{cxx, cxy, cxz}, {cxy, cyy, cyz}, {cxz, cyz, czz}};
 
   // F = Rᵀ C_t R (+ C_s or eps I), the fused covariance in the source frame
@@ -69,12 +85,12 @@ __device__ __forceinline__ void add_point(float (&acc)[kOut], const float (&R)[3
   float fyy = ROT_ENTRY(1, 1), fyz = ROT_ENTRY(1, 2), fzz = ROT_ENTRY(2, 2);
 #undef ROT_ENTRY
   if (kSrcCovs) {
-    fxx += sc[i];
-    fxy += sc[n + i];
-    fxz += sc[2 * n + i];
-    fyy += sc[3 * n + i];
-    fyz += sc[4 * n + i];
-    fzz += sc[5 * n + i];
+    fxx += pt.sc_at(0);
+    fxy += pt.sc_at(1);
+    fxz += pt.sc_at(2);
+    fyy += pt.sc_at(3);
+    fyz += pt.sc_at(4);
+    fzz += pt.sc_at(5);
   } else {
     fxx += eps;
     fyy += eps;
@@ -96,7 +112,7 @@ __device__ __forceinline__ void add_point(float (&acc)[kOut], const float (&R)[3
   const float ayy = co_yy * inv_det * m, ayz = co_yz * inv_det * m, azz = co_zz * inv_det * m;
 
   // r' = p + Rᵀ (t - mu), u = A r', error u·r'
-  const float p0 = p[i], p1 = p[n + i], p2 = p[2 * n + i];
+  const float p0 = pt.p_at(0), p1 = pt.p_at(1), p2 = pt.p_at(2);
   const float d0 = t[0] - mu0, d1 = t[1] - mu1, d2 = t[2] - mu2;
   const float r0 = p0 + R[0][0] * d0 + R[1][0] * d1 + R[2][0] * d2;
   const float r1 = p1 + R[0][1] * d0 + R[1][1] * d1 + R[2][1] * d2;
@@ -140,6 +156,16 @@ __device__ __forceinline__ void add_point(float (&acc)[kOut], const float (&R)[3
   acc[26] += u2;
   acc[27] += u0 * r0 + u1 * r1 + u2 * r2;
   acc[28] += m;
+}
+
+// Adds point i's 29 terms into acc (add_point_terms); mom and sc are planar
+// with row stride n.
+template <bool kSrcCovs>
+__device__ __forceinline__ void add_point(float (&acc)[kOut], const float (&R)[3][3], const float (&t)[3],
+                                          const float* __restrict__ p, const float* __restrict__ mom,
+                                          const float* __restrict__ sc, float m, float min_points,
+                                          float eps, int i, int n) {
+  add_point_terms<kSrcCovs>(acc, R, t, PlanarPoint{p, mom, sc, i, n}, m, min_points, eps);
 }
 
 // The pose [4,4], row-major, at delta.

@@ -6,15 +6,17 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
   correspondence payload. On a CUDA tensor it launches the hand-written
   kernel in csrc/linearize_fused.cu (or raises); on a CPU tensor it takes
   `linearize_fused_plain` (`planar.linearize_point_system` on
-  `planar.transform`). `error_fused` is plain PyTorch on every device, as the
-  reference's is XLA on every backend.
+  `planar.transform`). The kernel sums 29 terms a point and expands them to
+  the 12x12 system once; `linearize_fused_source_plain` is that arithmetic in
+  plain PyTorch, for the tests. `error_fused` is plain PyTorch on every
+  device, as the reference's is XLA on every backend.
 - K1, `linearize_vgicp_unary`: the unary (source-block-only) VGICP system
   from raw voxel moments. On a CUDA tensor it launches csrc/vgicp_unary.cu
   (or raises); on a CPU tensor it takes `linearize_vgicp_unary_plain`, the
   port of the reference's XLA twin `linearize_vgicp_unary_xla`.
 - K2, `linearize_vgicp_unary_batch`: K1's sums for B poses over one shared
-  source, in one launch pair. On CUDA tensors it launches the second entry
-  point of csrc/vgicp_unary.cu (or raises); on CPU tensors it takes
+  source, in one launch pair. On CUDA tensors it launches
+  csrc/vgicp_unary_batch.cu (or raises); on CPU tensors it takes
   `linearize_vgicp_unary_batch_plain`, `torch.func.vmap` of K1's plain
   version: the port of the reference's off-TPU route, `jax.vmap` of
   `linearize_vgicp_unary_xla`.
@@ -59,10 +61,9 @@ unary_batch_launches = 0
 moments_launches = 0
 dense_launches = 0
 
-_THREADS = 256  # csrc/linearize_fused.cu kThreads
+_THREADS = 128  # csrc/linearize_fused.cu kThreads
+_MAX_BLOCKS = 256  # its kMaxBlocks
 _OUT = 92  # 78 upper-triangle H entries, 12 g, err, count
-_POINTS_PER_THREAD = 4
-_MAX_BLOCKS = 1024
 
 # [12, 12] -> position of H[min(a,b)][max(a,b)] in the kernel's output row
 _TRI = [[0] * 12 for _ in range(12)]
@@ -73,9 +74,9 @@ _tri_index: Dict[torch.device, torch.Tensor] = {}
 
 
 def num_blocks(n: int) -> int:
-    """Grid size: about four points a thread, at most 1024 blocks. It depends
-    on n alone, so the summation order, and the result, is fixed for a shape."""
-    return max(1, min(-(-n // (_THREADS * _POINTS_PER_THREAD)), _MAX_BLOCKS))
+    """K3's grid: one point a thread, at most 256 blocks. It depends on n
+    alone, so the summation order, and the result, is fixed for a shape."""
+    return max(1, min(-(-n // _THREADS), _MAX_BLOCKS))
 
 
 def _library():
@@ -85,7 +86,8 @@ def _library():
     if fn.argtypes is None:  # first use in this process
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        if lib.gpt_linearize_fused_out_len() != _OUT or lib.gpt_linearize_fused_threads() != _THREADS:
+        if (lib.gpt_linearize_fused_out_len() != _OUT or lib.gpt_linearize_fused_threads() != _THREADS
+                or lib.gpt_linearize_fused_max_blocks() != _MAX_BLOCKS):
             raise RuntimeError("csrc/linearize_fused.cu does not match its wrapper")
     return fn
 
@@ -133,7 +135,7 @@ def linearize_fused_cuda(p_src, mu, W6, mask, delta) -> Linearized:
     _check("delta", delta, (4, 4), torch.float32, dev)
     fn = _library()
     blocks = num_blocks(n)
-    partial = torch.empty((blocks, _OUT), dtype=torch.float32, device=dev)
+    partial = torch.empty((blocks, _UNARY_OUT), dtype=torch.float32, device=dev)  # K3's 29 sums, K1's layout
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -151,6 +153,51 @@ def linearize_fused_plain(p_src, mu, W6, mask, delta) -> Linearized:
     """The same function in plain PyTorch, on any device."""
     pm = planar.transform(delta, p_src)
     return planar.linearize_point_system(p_src, pm, pm - mu, W6, mask, delta[:3, :3])
+
+
+def _expand_source_sums(sums: torch.Tensor, delta: torch.Tensor) -> Linearized:
+    """K3's final step in plain PyTorch: the 29 sums of the rotated-source
+    block (K1's layout, with q = R p in place of p and W in place of A) ->
+    the 12x12 system. With J~ = [-skew(q) | I], D = diag(R, R) and N =
+    [I 0; -skew(t) I]: J_s = J~ D and J_t = -J~ N, so H_ss = Dᵀ H~ D,
+    H_tt = Nᵀ H~ N, H_ts = -Nᵀ H~ D, b_s = -Dᵀ g~ and b_t = Nᵀ g~."""
+    R, t = delta[:3, :3], delta[:3, 3]
+    zero = t.new_zeros(())
+    z3 = t.new_zeros((3, 3))
+    eye3 = torch.eye(3, dtype=t.dtype, device=t.device)
+    skew_t = torch.stack([
+        torch.stack([zero, -t[2], t[1]]),
+        torch.stack([t[2], zero, -t[0]]),
+        torch.stack([-t[1], t[0], zero]),
+    ])
+    D = torch.cat([torch.cat([R, z3], 1), torch.cat([z3, R], 1)])
+    N = torch.cat([torch.cat([eye3, z3], 1), torch.cat([-skew_t, eye3], 1)])
+    src = _unpack_unary(sums)
+    H, g = src.H_ss, -src.b_s  # H~, g~
+    HD = H @ D
+    return Linearized(
+        H_tt=N.T @ (H @ N),
+        H_ss=D.T @ HD,
+        H_ts=-(N.T @ HD),
+        b_t=N.T @ g,
+        b_s=-(D.T @ g),
+        error=src.error,
+        num_inliers=src.num_inliers,
+    )
+
+
+def linearize_fused_source_plain(p_src, mu, W6, mask, delta) -> Linearized:
+    """K3's own arithmetic in plain PyTorch, on any device: per point
+    q = R p and r = (q + t) - mu, the 29 sums of `_unary_terms` with W as
+    the weight (0 where the mask is False), then `_expand_source_sums`. The
+    same function as `linearize_fused_plain`, summed another way."""
+    R, t = delta[:3, :3], delta[:3, 3]
+    q = R @ p_src
+    r = (q + t[:, None]) - mu
+    zero = torch.zeros((), dtype=p_src.dtype, device=p_src.device)
+    q, r, w = (torch.where(mask, x, zero) for x in (q, r, W6))
+    terms = _unary_terms(q, w, r, mask.to(p_src.dtype))
+    return _expand_source_sums(torch.sum(terms, dim=1), delta)
 
 
 def linearize_fused(p_src, mu, W6, mask, delta) -> Linearized:
@@ -175,7 +222,6 @@ def error_fused(p_src, mu, W6, mask, delta) -> torch.Tensor:
 _UNARY_THREADS = 256  # csrc/vgicp_unary.cu kThreads
 _UNARY_OUT = 29  # h11 (6), sA (9), A (6), p x u (3), u (3), error, weighted count
 _UNARY_MAX_BLOCKS = 1024
-_UNARY_MAX_LANES = 65535  # K2's lanes run on gridDim.y
 
 # [6, 6] H_ss = [[h11, sA], [sAᵀ, A]] as positions in the 29 sums
 _UNARY_H = [
@@ -308,9 +354,18 @@ def linearize_vgicp_unary_plain(
         F = F + src_covs6
     else:
         F = torch.stack([F[0] + eps, F[1], F[2], F[3] + eps, F[4], F[5] + eps])
-    axx, axy, axz, ayy, ayz, azz = planar.sym_inv(F) * okf[None, :]
+    A = planar.sym_inv(F) * okf[None, :]
     d = delta[:3, 3, None] - mu
     rp = p_src + R.T @ d  # r' = Rᵀ r
+    return _unpack_unary(torch.sum(_unary_terms(p_src, A, rp, okf), dim=1))
+
+
+def _unary_terms(p_src, A, rp, count):
+    """The 29 per-point terms [29, N] of the unary source block, in the
+    kernels' order: h11 = skew(p) A skew(p)ᵀ (6), sA = skew(p) A (9), A (6),
+    p x u (3), u = A r' (3), u·r', count. p_src, rp [3, N]; A [6, N]
+    (symmetric, upper); count [N]."""
+    axx, axy, axz, ayy, ayz, azz = A
     u0 = axx * rp[0] + axy * rp[1] + axz * rp[2]
     u1 = axy * rp[0] + ayy * rp[1] + ayz * rp[2]
     u2 = axz * rp[0] + ayz * rp[1] + azz * rp[2]
@@ -342,10 +397,10 @@ def linearize_vgicp_unary_plain(
             sA00, sA01, sA02, sA10, sA11, sA12, sA20, sA21, sA22,
             axx, axy, axz, ayy, ayz, azz,
             bt0, bt1, bt2, u0, u1, u2,
-            err, okf,
+            err, count,
         ]
     )  # [29, N]
-    return _unpack_unary(torch.sum(stack, dim=1))
+    return stack
 
 
 def linearize_vgicp_unary(
@@ -459,9 +514,22 @@ def linearize_vgicp_unary_dense(
 # ---------------------------------------------------------------------------
 
 
+_BATCH_THREADS = 64  # csrc/vgicp_unary_batch.cu kThreads
+_BATCH_POINTS_PER_THREAD = 4  # its kQuadsPerThread quads of four points
+_BATCH_MAX_BLOCKS = 256  # its kMaxBlocks, blocks a lane
+_BATCH_MAX_LANES = 65535  # its kMaxLanes: the lanes run on gridDim.y
+
+
+def unary_batch_num_blocks(n: int) -> int:
+    """K2's blocks a lane: four points a thread, at most 256 blocks. It
+    depends on n alone, never on the number of lanes, so a lane's sums, and
+    its result, are the same whichever lanes share the launch."""
+    return max(1, min(-(-n // (_BATCH_THREADS * _BATCH_POINTS_PER_THREAD)), _BATCH_MAX_BLOCKS))
+
+
 def _unary_batch_library():
-    """K2's launcher, the second entry point of csrc/vgicp_unary.cu."""
-    lib = _build.load("vgicp_unary")
+    """K2's launcher, csrc/vgicp_unary_batch.cu."""
+    lib = _build.load("vgicp_unary_batch")
     fn = lib.gpt_vgicp_unary_batch
     if fn.argtypes is None:  # first use in this process
         fn.restype = ctypes.c_int
@@ -469,9 +537,10 @@ def _unary_batch_library():
             [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float]
             + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
-        if (lib.gpt_vgicp_unary_out_len() != _UNARY_OUT or lib.gpt_vgicp_unary_threads() != _UNARY_THREADS
-                or lib.gpt_vgicp_unary_batch_max_lanes() != _UNARY_MAX_LANES):
-            raise RuntimeError("csrc/vgicp_unary.cu does not match its wrapper")
+        if (lib.gpt_vgicp_unary_batch_out_len() != _UNARY_OUT
+                or lib.gpt_vgicp_unary_batch_threads() != _BATCH_THREADS
+                or lib.gpt_vgicp_unary_batch_max_lanes() != _BATCH_MAX_LANES):
+            raise RuntimeError("csrc/vgicp_unary_batch.cu does not match its wrapper")
     return fn
 
 
@@ -498,16 +567,17 @@ def linearize_vgicp_unary_batch_cuda(
     None shared by the lanes, momT_b [B, 10, N], found_b [B, N] bool, deltas
     [B, 4, 4], all f32 (but found_b) and contiguous on one CUDA device, with
     1 <= B <= 65535. An expanded (stride 0) momT_b is refused: each lane reads
-    its own rows."""
+    its own rows. 16-byte loads are taken where N is a multiple of 4 and the
+    planes are aligned; the result does not depend on it."""
     global unary_batch_launches
     dev = p_src.device
     if dev.type != "cuda":
         raise ValueError(f"linearize_vgicp_unary_batch_cuda needs CUDA tensors, got {dev}")
     b, n = _check_unary_batch(p_src, momT_b, found_b, deltas, src_covs6, contiguous=True)
-    if b > _UNARY_MAX_LANES:
-        raise ValueError(f"{b} lanes, at most {_UNARY_MAX_LANES} in one launch")
+    if b > _BATCH_MAX_LANES:
+        raise ValueError(f"{b} lanes, at most {_BATCH_MAX_LANES} in one launch")
     fn = _unary_batch_library()
-    blocks = unary_num_blocks(n)  # K1's grid in every lane, so K1's order of the sums
+    blocks = unary_batch_num_blocks(n)
     partial = torch.empty((b, blocks, _UNARY_OUT), dtype=torch.float32, device=dev)
     out = torch.empty((b, _UNARY_OUT), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -97,7 +97,7 @@ def test_wrapper_output_layout_and_device_rule():
     assert FL.launches == before
     with pytest.raises(ValueError):
         FL.linearize_fused_cuda(*arrays)
-    assert FL.num_blocks(1) == 1 and FL.num_blocks(25_088) == 25 and FL.num_blocks(10**8) == 1024
+    assert FL.num_blocks(1) == 1 and FL.num_blocks(25_088) == 196 and FL.num_blocks(10**8) == 256
 
 
 def test_vgicp_factor_linearize_matches_jax():

@@ -160,7 +160,7 @@ def test_unary_batch_matches_jax_kernel_and_xla(monkeypatch, request, case, with
 @pytest.mark.parametrize("with_covs", [True, False], ids=["covs", "eps"])
 def test_unary_batch_plain_equals_a_loop_of_k1(box, with_covs):
     """Lane b of the vmapped plain version is K1's plain version on lane b's
-    inputs, bit for bit, as K2's lane b is K1 on the card."""
+    inputs, bit for bit: the vmap adds no arithmetic of its own."""
     p, momT_b, found_b, deltas, covs6 = (torch.from_numpy(a) for a in _lanes(box, 3, seed=21))
     sc = covs6 if with_covs else None
     lin = FL.linearize_vgicp_unary_batch_plain(p, momT_b, found_b, deltas, 4.0, EPS, sc)
