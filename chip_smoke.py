@@ -14,6 +14,13 @@ Run from the root of a checkout:
     python3 chip_smoke.py --k3-witness TREE   # only K3 of the checkout at TREE
                                               # on phase 3's payloads against
                                               # float64 (an A/B of precision)
+    python3 chip_smoke.py --unary-witness TREE  # only K1 and K5 of the checkout
+                                              # at TREE timed on phase 7's
+                                              # inputs (an A/B of speed)
+    python3 chip_smoke.py --sass-diff TREE    # only: every kernel source of
+                                              # this checkout and of TREE
+                                              # built, and their SASS compared
+                                              # function by function
 
 Phases, each of which ends the run with a nonzero exit if it fails:
   1. environment: card name and power limit (nvidia-smi), torch version;
@@ -41,9 +48,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      the CPU's maps;
   7. K1 (csrc/vgicp_unary.cu) against its plain PyTorch version on the card,
      on the pyramid's own inputs at a pose off the identity and at the
-     identity: N = 1, 1000, 25087, 25088, half the mask False, non-unit
+     identity: N = 1, 8, 1000, 25087, 25088, half the mask False, non-unit
      weights, with and without source covariances, and the stride-8, 4 and
-     2 stages' sources;
+     2 stages' sources; each case called twice with no host read allowed,
+     the two calls equal bit for bit; device us per launch pair, split
+     between the partial and the final kernel, beside the bound, at N = 1
+     and at the four stage shapes (N = 3136, 6272, 12544, 25088);
   8. the pyramid path at a real size: one 25k-point scan registered against
      a DEFAULT_STAGES pyramid built from the one before it, from eight
      perturbed initial poses, through build_pyramid and
@@ -83,14 +93,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      launched once per lane and the plain vmapped version, with and without
      source covariances; the routes' systems held to each other, K2's
      launches equal to its route's calls;
- 13. K5 (csrc/vgicp_unary_dense.cu) against its plain PyTorch version and,
-     on the source block, against K1, on scan 1 against scan 0's leaf-1.0
+ 13. K5 (csrc/vgicp_unary_dense.cu) against its plain PyTorch version and
+     against K1 without weights, bit for bit (K5 runs K1's partial kernel on
+     K1's grid), on scan 1 against scan 0's leaf-1.0
      map and on the stride-8 stage against the leaf-4 map: N = 1, 7, 8,
      3136, 4095, 4096, 4097, 25087 and 25088; with and without source
      covariances; min_voxel_points 1 and 3 (tpu_parity's dense gate: 3,
      eps 1e-3, covariances); half the mask False; at the identity, at
      K1_TWIST's pose and at the pose phase 8 registered; each K5 call twice,
-     equal bit for bit, with no host read allowed;
+     equal bit for bit, with no host read allowed; device us per launch pair
+     beside K1's at N = 1, 8, 3136 and 25088;
 then one JSON line for all five kernels (K3, K1, K4, K2, K5) and, last, the
 device line.
 
@@ -129,7 +141,7 @@ K3_FLOPS_PER_POINT = 124
 DIRECT_FLOPS_PER_POINT = 790
 K3_BYTES_PER_POINT = 12 + 12 + 24 + 1  # p, mu, W6 (f32) and the mask byte
 # K1 fp32 operations per point that passes its gate, counted from
-# csrc/vgicp_unary.cu: moment finalize 22, Rᵀ C_t R 75, + C_s 6, inverse and
+# add_point_terms in csrc/unary_point.cuh: moment finalize 22, Rᵀ C_t R 75, + C_s 6, inverse and
 # m-scaling 44, r' 21, u 15, skew(p) A 27, h11 18, p x u 9, error 5, 29 sums.
 K1_FLOPS_PER_POINT = 271
 
@@ -364,7 +376,7 @@ def measure_k3(torch, args, device: bool) -> dict:
     torch.cuda.synchronize()
     abs_err, rel_err = _max_err(torch, lin, ref)
     _, mirror_rel = _max_err(torch, lin, mirror)
-    differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(lin, again))
+    differ = _bits_differ(torch, lin, again)
     n, n_valid = args[0].shape[1], int(args[3].sum())
     bound, bound_by = k3_bound_ms(n, n_valid)
     return {
@@ -436,6 +448,98 @@ def k3_witness(torch, tree: str) -> None:
         log(f"[k3-witness] {tree} N={n} {kind}{' half-mask' if half else ''}: err/max|ref| against float64: "
             f"K3 {_max_err(torch, lin, ref64)[1]:.3e}, plain {_max_err(torch, ref, ref64)[1]:.3e}; "
             f"K3 vs plain {_max_err(torch, lin, ref)[1]:.3e}")
+
+
+def _strip_anonymous(text: str) -> str:
+    """A mangled name, or a line of SASS, without its anonymous-namespace
+    components (`<len>_GLOBAL__N__...`), which differ by tree."""
+    import re
+
+    out, pos = [], 0
+    for m in re.finditer(r"(\d+)(_GLOBAL__N__|_INTERNAL_)", text):
+        if m.start() < pos:
+            continue
+        out.append(text[pos:m.start()] + "ANON")
+        pos = m.start(2) + int(m.group(1))
+    return "".join(out) + text[pos:]
+
+
+def _sass_functions(path: str) -> dict:
+    """cuobjdump -sass of a library -> {function name without its
+    anonymous-namespace prefix: its SASS lines, joined}."""
+    from gtsam_points_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True).stdout
+    funcs, current = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            current = _strip_anonymous(line.split("Function : ", 1)[1].strip())
+            funcs[current] = []
+        elif current is not None and line.strip():
+            funcs[current].append(_strip_anonymous(line.strip()))
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def sass_diff(tree: str) -> None:
+    """--sass-diff: every kernel source of this checkout and of the checkout
+    at `tree` (another commit unpacked into a directory that .gitignore
+    lists) built with this checkout's nvcc flags into a scratch directory
+    inside the build directory, and their SASS compared function by
+    function; a kernel found under another name in the other tree is
+    matched by its code. One line a source."""
+    import tempfile
+    from pathlib import Path
+
+    from gtsam_points_tpu_torch import _build
+
+    trees = {"here": Path(ROOT), "there": Path(tree).resolve()}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for name in _build.SOURCES:
+            sass = {}
+            for label, root in trees.items():
+                src = root / "gtsam_points_tpu_torch" / "csrc" / f"{name}.cu"
+                if not src.exists():
+                    continue
+                lib = os.path.join(tmp, f"{label}_{name}.so")
+                subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, str(src)],
+                               capture_output=True, text=True, check=True)
+                sass[label] = _sass_functions(lib)
+            if len(sass) < 2:
+                log(f"[sass] {name}.cu: only {', '.join(sass)}")
+                continue
+            a, b = sass["here"], sass["there"]
+            equal = [k for k in a if b.get(k) == a[k]]
+            renamed = [f"{k} = {next(j for j in b if b[j] == a[k])} there" for k in a
+                       if b.get(k) != a[k] and a[k] in b.values()]
+            new = [k for k in a if a[k] not in b.values()]
+            gone = [k for k in b if b[k] not in a.values()]
+            log(f"[sass] {name}.cu vs {tree}: {len(equal)} of {len(a)} functions equal under the same name; "
+                f"equal under another name: {renamed or 'none'}; code found nowhere there: {new or 'none'}; "
+                f"code there found nowhere here: {gone or 'none'}")
+
+
+def unary_witness(torch, tree: str) -> None:
+    """--unary-witness: K1's and K5's device us per launch pair, by kernel,
+    of the checkout at `tree` (this commit's, or another's unpacked into a
+    directory that .gitignore lists) on phase 7's inputs: K1 at N = 1 and at
+    the pyramid's four stage shapes, K5 at N = 1, 8, 3136 and 25088. Held to
+    nothing, so that two commits' K1 and K5 can be timed side by side in
+    one chip call. It uses only functions every commit of the port since K5
+    has."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+
+    _, scans, _, priors = _ring_frames(torch, 2)
+    source, maps, _ = _pyramid_inputs(torch, scans, priors[0], "cuda")
+    cases = dict(_k1_cases(torch, source, maps))
+    runs = [("K1", FL.linearize_vgicp_unary_cuda, name, cases[name])
+            for name in ("N=1", "stride 8 leaf 4", "stride 4 leaf 1", "stride 2 leaf 1", "N=25088")]
+    runs += [("K5", FL.linearize_vgicp_unary_dense_cuda, name, cases[name][:7])
+             for name in ("N=1", "N=8", "stride 8 leaf 4", "N=25088")]
+    for kernel, fn, name, args in runs:
+        split = _device_us_by_kernel(torch, lambda: fn(*args), "unary_")
+        log(f"[unary-witness] {tree} {kernel} {name} (N={args[0].shape[1]}): device {_pair_text(split)}")
 
 
 def _zero_counts(FL) -> None:
@@ -694,9 +798,16 @@ def k1_bound_ms(args) -> tuple:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def _device_us_per_call(torch, fn, key: str, calls: int = 100):
-    """Device time of the kernels whose name holds `key`, per call of fn, from
-    a profiler trace of `calls` calls; None when the trace holds no device time."""
+def _kernel_label(name: str) -> str:
+    """A profiler's kernel name without its return type, namespace and
+    arguments: "unary_partial<true, false>"."""
+    return name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def _device_us_by_kernel(torch, fn, key: str, calls: int = 100) -> dict:
+    """Device time per call of fn of each kernel whose name holds `key`, by
+    _kernel_label, from one profiler trace of `calls` calls; empty when the
+    trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -706,9 +817,32 @@ def _device_us_per_call(torch, fn, key: str, calls: int = 100):
             fn()
         torch.cuda.synchronize()
     kernel_type = torch.autograd.DeviceType.CUDA
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == kernel_type and key in e.key)
-    return total / calls if total > 0 else None
+    split = collections.defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type == kernel_type and key in e.key and e.self_device_time_total > 0:
+            split[_kernel_label(e.key)] += e.self_device_time_total / calls
+    return dict(split)
+
+
+def _pair_text(split: dict) -> str:
+    """A _device_us_by_kernel result as text: the pair's total, then each
+    kernel's share."""
+    if not split:
+        return "not measured"
+    return (f"{sum(split.values()):.3f} us per launch pair ("
+            + ", ".join(f"{k} {v:.3f} us" for k, v in sorted(split.items())) + ")")
+
+
+def _device_us_per_call(torch, fn, key: str, calls: int = 100):
+    """Device time of the kernels whose name holds `key`, per call of fn, from
+    a profiler trace of `calls` calls; None when the trace holds no device time."""
+    split = _device_us_by_kernel(torch, fn, key, calls)
+    return sum(split.values()) if split else None
+
+
+def _bits_differ(torch, x, y) -> int:
+    """Values of two Linearized (or tuples of tensors) that differ in any bit."""
+    return sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(x, y))
 
 
 def _digest(tensors) -> str:
@@ -748,6 +882,7 @@ def _k1_cases(torch, source, maps) -> list:
     strides = [st.stride for st in DEFAULT_STAGES]  # 8, 4, 2, 1
     return [
         ("N=1", stage_args(1, maps[-1], n=1)),
+        ("N=8", stage_args(1, maps[-1], n=8)),
         ("N=1000", stage_args(1, maps[-1], n=1000)),
         ("N=25087", stage_args(1, maps[-1], n=25087)),
         ("N=25088", stage_args(1, maps[-1])),
@@ -764,9 +899,12 @@ def _k1_cases(torch, source, maps) -> list:
 
 
 def phase_k1(torch, source, maps) -> dict:
-    """K1 against its plain version on the pyramid's own inputs (_k1_cases);
-    times at the last stage's shape (N = 25088) and at the first stage's
-    (stride 8)."""
+    """K1 against its plain version on the pyramid's own inputs (_k1_cases),
+    each case called twice with no host read allowed, the two calls equal
+    bit for bit; device us per launch pair, split between the partial and
+    the final kernel from the trace, each beside its bound, at N = 1 and at
+    the pyramid's four stage shapes (N = 3136, 6272, 12544, 25088); wrapper
+    and plain times at the last stage's shape and at the first stage's."""
     from gtsam_points_tpu_torch.ops import fused_linearize as FL
     from gtsam_points_tpu_torch.registration.pyramid import DEFAULT_STAGES
 
@@ -777,36 +915,53 @@ def phase_k1(torch, source, maps) -> dict:
         raise AssertionError("K1's wrapper took a non-contiguous source")
     except ValueError:
         pass
+    FL.linearize_vgicp_unary_cuda(*cases[0][1])  # loads the library before the host reads are refused
+    torch.cuda.synchronize()
     outputs = []
     for name, args in cases:
-        lin = FL.linearize_vgicp_unary_cuda(*args)
+        torch.cuda.set_sync_debug_mode("error")  # a host read inside raises
+        try:
+            lin = FL.linearize_vgicp_unary_cuda(*args)
+            again = FL.linearize_vgicp_unary_cuda(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         ref = FL.linearize_vgicp_unary_plain(*args)
         outputs.append(lin)
         torch.cuda.synchronize()
         abs_err, rel_err = _max_err(torch, lin, ref)
+        differ = _bits_differ(torch, lin, again)
         log(f"[k1] {name}: valid {int(ref.num_inliers)} max_abs_err={abs_err:.3e} "
-            f"err/max|ref|={rel_err:.3e} (tol {K1_TOL})")
+            f"err/max|ref|={rel_err:.3e} (tol {K1_TOL}); two calls differ in {differ} values (must be 0)")
         if rel_err > K1_TOL or int(lin.num_inliers) != int(ref.num_inliers):
             raise AssertionError(f"K1 disagrees with its plain version ({name})")
+        if differ:
+            raise AssertionError(f"two K1 calls on the same input differ ({name})")
 
     out = {"outputs": outputs}
-    for key, (name, args) in (("main", cases[3]), ("stride8", cases[-2])):
-        lin = FL.linearize_vgicp_unary_cuda(*args)
-        abs_err, _ = _max_err(torch, lin, FL.linearize_vgicp_unary_plain(*args))
+    by_name = dict(cases)
+    timed = (("N=1", "N=1"), ("stride8", "stride 8 leaf 4"), ("stride4", "stride 4 leaf 1"),
+             ("stride2", "stride 2 leaf 1"), ("main", "N=25088"))
+    for key, name in timed:
+        args = by_name[name]
         bound, bound_by = k1_bound_ms(args)
+        split = _device_us_by_kernel(torch, lambda: FL.linearize_vgicp_unary_cuda(*args), "unary_")
         r = {
             "n": args[0].shape[1],
-            "max_abs_err": abs_err,
-            "ms": _median_ms(torch, lambda: FL.linearize_vgicp_unary_cuda(*args)),
-            "plain_ms": _median_ms(torch, lambda: FL.linearize_vgicp_unary_plain(*args)),
-            "device_us": _device_us_per_call(torch, lambda: FL.linearize_vgicp_unary_cuda(*args), "unary_"),
+            "device_us": sum(split.values()) if split else None,
+            "split": split,
             "bound_ms": bound,
             "bound_by": bound_by,
         }
-        device = "not measured" if r["device_us"] is None else f"{r['device_us']:.3f} us"
-        log(f"[k1] {name} (N={r['n']}): kernel {r['ms']:.4f} ms (wrapper, CUDA events), device {device} "
-            f"per launch pair, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.4f} us "
-            f"({r['bound_by']}); no single PyTorch call computes this function")
+        line = (f"[k1] {name} (N={r['n']}, {FL.unary_num_blocks(r['n'])} blocks): device {_pair_text(split)}, "
+                f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})")
+        if key in ("main", "stride8"):
+            lin = FL.linearize_vgicp_unary_cuda(*args)
+            r["max_abs_err"] = _max_err(torch, lin, FL.linearize_vgicp_unary_plain(*args))[0]
+            r["ms"] = _median_ms(torch, lambda: FL.linearize_vgicp_unary_cuda(*args))
+            r["plain_ms"] = _median_ms(torch, lambda: FL.linearize_vgicp_unary_plain(*args))
+            line += (f"; kernel {r['ms']:.4f} ms (wrapper, CUDA events), plain {r['plain_ms']:.4f} ms; "
+                     "no single PyTorch call computes this function")
+        log(line)
         out[key] = r
     return out
 
@@ -1283,7 +1438,7 @@ def phase_k2(torch, source, vmap, T_reg) -> None:
         lins = [FL.linearize_vgicp_unary_batch_cuda(*x) for x in paths.values()]
         torch.cuda.synchronize()
         differ = bits_differ(*lins)
-        us = {k: _device_us_per_call(torch, lambda x=x: FL.linearize_vgicp_unary_batch_cuda(*x), "unary_batch_")
+        us = {k: _device_us_per_call(torch, lambda x=x: FL.linearize_vgicp_unary_batch_cuda(*x), "unary_")
               for k, x in paths.items()}
         log(f"[k2] B={K2_LANES} N={n_all} {'covs' if covs else 'eps'}: load paths differ in {differ} lane-fields "
             f"(must be 0); device per launch pair " + ", ".join(
@@ -1379,15 +1534,17 @@ def phase_batch_race(torch, source, vmap, profile: Optional[str]) -> dict:
 
 
 def phase_k5(torch, source, maps, T_reg) -> dict:
-    """K5 against its plain version and, on the source block, against K1,
-    on scan 1 (`source`, moved back by the true prior) against scan 0's
-    leaf-1.0 map (`maps[-1]`) and on the stride-8 stage against the leaf-4
-    map (`maps[0]`): the tails of the dense view, both modes, both gates,
-    half masks, at the identity, at K1_TWIST's pose and at `T_reg`, the
-    card's registration of scan 1. Each case calls K5 twice with no host
-    read allowed, and the two calls must agree bit for bit. Then times and
-    device us per launch pair beside K1's, on bench.py's race case (N = 25088,
-    covariances, min_voxel_points 1) and at N = 1, 8 and the stride-8 stage."""
+    """K5 against its plain version at K1_TOL and against K1 without weights
+    bit for bit (K5 runs K1's partial kernel on K1's grid), on scan 1
+    (`source`, moved back by the true prior) against scan 0's leaf-1.0 map
+    (`maps[-1]`) and on the stride-8 stage against the leaf-4 map
+    (`maps[0]`): the tails of the TPU's dense view and of K1's blocks, both
+    modes, both gates, half masks, at the identity, at K1_TWIST's pose and
+    at `T_reg`, the card's registration of scan 1. Each case calls K5 twice
+    with no host read allowed, and the two calls must agree bit for bit.
+    Then times and device us per launch pair beside K1's, on bench.py's
+    race case (N = 25088, covariances, min_voxel_points 1) and at N = 1, 8
+    and the stride-8 stage."""
     from gtsam_points_tpu_torch.ops import fused_linearize as FL
     from gtsam_points_tpu_torch.registration.pyramid import _source_planar
     from gtsam_points_tpu_torch.utils import se3
@@ -1443,11 +1600,13 @@ def phase_k5(torch, source, maps, T_reg) -> dict:
         k1 = FL.linearize_vgicp_unary_cuda(*args)
         torch.cuda.synchronize()
         _check_close(torch, f"[k5] {name}: K5 vs plain", lin, ref, K1_TOL)
-        _check_close(torch, f"[k5] {name}: K5 vs K1, source block", _source_block(lin), _source_block(k1), K1_TOL)
-        differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(lin, again))
-        log(f"[k5] {name}: two K5 calls differ in {differ} values (must be 0)")
+        differ, k1_differ = _bits_differ(torch, lin, again), _bits_differ(torch, lin, k1)
+        log(f"[k5] {name}: two K5 calls differ in {differ} values, K5 and K1 without weights in {k1_differ} "
+            "(both must be 0)")
         if differ:
             raise AssertionError(f"two K5 calls on the same input differ ({name})")
+        if k1_differ:
+            raise AssertionError(f"K5 differs from K1 without weights ({name})")
 
     out = {}
     for key, kw in (("main", {}), ("stride8", dict(stride=8)), ("N=8", dict(n=8)), ("N=1", dict(n=1))):
@@ -1466,7 +1625,7 @@ def phase_k5(torch, source, maps, T_reg) -> dict:
             "bound_by": bound_by,
         }
         device, k1_device = ("not measured" if v is None else f"{v:.3f} us" for v in (r["device_us"], r["k1_device_us"]))
-        log(f"[k5] {key} (N={r['n']}, {FL.unary_dense_num_blocks(r['n'])} blocks): kernel {r['ms']:.4f} ms (wrapper, "
+        log(f"[k5] {key} (N={r['n']}, {FL.unary_num_blocks(r['n'])} blocks): kernel {r['ms']:.4f} ms (wrapper, "
             f"CUDA events), device {device} per launch pair, K1 {k1_device} per launch pair on the same inputs, "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); no single "
             "PyTorch call computes this function")
@@ -1483,6 +1642,11 @@ def main() -> int:
     parser.add_argument("--k3-witness", metavar="TREE",
                         help="only read the K3 of the checkout at TREE on phase 3's payloads against float64, "
                              "then exit")
+    parser.add_argument("--unary-witness", metavar="TREE",
+                        help="only time the K1 and K5 of the checkout at TREE on phase 7's inputs, then exit")
+    parser.add_argument("--sass-diff", metavar="TREE",
+                        help="only build every kernel source of this checkout and of the checkout at TREE and "
+                             "compare their SASS function by function, then exit")
     args = parser.parse_args()
 
     import torch
@@ -1490,15 +1654,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    tree = os.path.abspath(args.k3_witness) if args.k3_witness else ROOT
+    witness = args.k3_witness or args.unary_witness
+    tree = os.path.abspath(witness) if witness else ROOT
     sys.path.insert(0, tree)
     import gtsam_points_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    if args.k3_witness:
+    if witness:
         if not gtsam_points_tpu_torch.__file__.startswith(tree + os.sep):
             raise RuntimeError(f"gtsam_points_tpu_torch came from {gtsam_points_tpu_torch.__file__}, not {tree}")
         phase_environment(torch)
-        k3_witness(torch, args.k3_witness)
+        (k3_witness if args.k3_witness else unary_witness)(torch, witness)
+        return 0
+    if args.sass_diff:
+        phase_environment(torch)
+        sass_diff(args.sass_diff)
         return 0
 
     t_start = time.perf_counter()

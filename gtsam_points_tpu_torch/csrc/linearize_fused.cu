@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pose.cuh"
 #include "reduce32.cuh"
 
 namespace {
@@ -238,15 +239,6 @@ __device__ __forceinline__ void expand(const float* sums, Expansion& e, float* _
     o = sums[27 + tid - kTri - kDim];
   }
   if (tid < kOut) out[tid] = o;
-}
-
-__device__ __forceinline__ void load_pose(const float* __restrict__ delta, float (&R)[3][3], float (&t)[3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = __ldg(delta + 4 * i + j);
-    t[i] = __ldg(delta + 4 * i + 3);
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)

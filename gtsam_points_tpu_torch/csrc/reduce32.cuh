@@ -1,6 +1,6 @@
 // Block-wide sums of up to 32 values a thread, in a fixed order and without
-// atomics, for K3 (csrc/linearize_fused.cu) and K2
-// (csrc/vgicp_unary_batch.cu).
+// atomics, for K3 (csrc/linearize_fused.cu) and, through
+// csrc/unary_point.cuh, for K1, K5 and K2.
 //
 // A shuffle tree per value costs 5 shuffles a value, 145 a warp for 29
 // values. Recursive halving costs 31: at each of five steps a lane keeps half

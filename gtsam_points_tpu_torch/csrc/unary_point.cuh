@@ -1,18 +1,25 @@
-// The per-point math of the unary VGICP linearize and its block-ordered
-// reduction, shared by K1 (csrc/vgicp_unary.cu), K2
-// (csrc/vgicp_unary_batch.cu) and K5 (csrc/vgicp_unary_dense.cu).
+// The unary VGICP linearize's per-point math, its partial kernel and its
+// final pass, shared by K1 (csrc/vgicp_unary.cu), K5
+// (csrc/vgicp_unary_dense.cu) and K2 (csrc/vgicp_unary_batch.cu).
 //
-// It is the port of _unary_quantities in
-// gtsam_points_tpu/ops/pallas_linearize.py:656-735, which serves the three TPU
-// kernels alike. Keeping one copy keeps the FMA-free raw-moment differences
-// (sub_prod) and every other rounding the same in all three, so K1, K2 and K5
-// differ only in the order in which they sum the points. The math takes its
-// inputs through an accessor (add_point_terms), so K1 and K5 read each value
-// from global memory where the math first needs it (add_point), while K2
-// hands over values it loaded ahead. The reduction is shared too: each block
-// writes one row of partial sums (block_sum); K1 and K5 sum the rows in block
-// order (unary_final), K2 with its own final pass. Every result is
-// deterministic without atomics.
+// - add_point_terms is the port of _unary_quantities in
+//   gtsam_points_tpu/ops/pallas_linearize.py:656-735, which serves the three
+//   TPU kernels alike. One copy keeps the FMA-free raw-moment differences
+//   (sub_prod), the determinant rule and every other rounding the same in
+//   K1, K2 and K5. It takes values the caller already loaded, through an
+//   accessor (HeldPoint here, QuadPoint in K2), so every load of a point is
+//   in flight before its gate is tested.
+// - unary_partial<kSrcCovs, kWeights> is K1's partial kernel. K5 launches
+//   the same template with kWeights false, so K5 equals K1 without weights
+//   bit for bit. Its grid, unary_blocks(n), depends on n alone; each
+//   library exports it (gpt_vgicp_unary_num_blocks), and the wrapper
+//   (ops/fused_linearize.py) checks it against its own when it loads the
+//   library. launch_unary launches the pair.
+// - unary_final sums the partial rows of each lane: K1 and K5 launch it with
+//   one lane, K2 with B. Its rows are staged in shared memory, one row a
+//   thread, so a grid has at most kFinalRows blocks a lane.
+// Every sum is taken in a fixed order without atomics, so two calls on the
+// same input agree bit for bit.
 //
 // A library is keyed on its .cu file and every csrc/*.cuh (see _build.py), so
 // an edit here rebuilds each source that includes it.
@@ -20,42 +27,36 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "pose.cuh"
+#include "reduce32.cuh"
 
 namespace {
 
 // the sums per point: h11 (6), sA (9), A (6), p x u (3), u (3), error, count
 constexpr int kOut = 29;
-constexpr int kFinalThreads = 32;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
+// The final pass: one block of kFinalThreads a lane, one partial row a
+// thread, so at most kFinalRows rows (blocks) a lane.
+constexpr int kFinalThreads = 256;
+constexpr int kFinalRows = kFinalThreads;
+
+// K1's and K5's partial kernel: one point a thread on blocks of
+// kUnaryThreads, at most kFinalRows blocks, a grid-stride loop beyond.
+constexpr int kUnaryThreads = 128;
+constexpr int kUnaryWarps = kUnaryThreads / 32;
 
 // s - a * b, each step rounded on its own.
 __device__ __forceinline__ float sub_prod(float s, float a, float b) {
   return __fsub_rn(s, __fmul_rn(a, b));
 }
 
-// Point i of planar inputs with row stride n, read from global memory where
-// add_point_terms asks for a value (K1, K5).
-struct PlanarPoint {
-  const float* __restrict__ p;
-  const float* __restrict__ mom;
-  const float* __restrict__ sc;
-  int i;
-  int n;
-  __device__ __forceinline__ float mom_at(int k) const { return mom[k * n + i]; }
-  __device__ __forceinline__ float p_at(int k) const { return p[k * n + i]; }
-  __device__ __forceinline__ float sc_at(int k) const { return sc[k * n + i]; }
-};
-
 // Adds one point's 29 terms into acc. m is the point's found flag times its
 // weight; the point is skipped unless its voxel holds min_points and m > 0.
 // `pt` gives the point's moment row (mom_at, k = 0..9), its coordinates
-// (p_at) and its source covariance (sc_at): PlanarPoint reads them from
-// global memory in this order, K2 hands over values it already holds.
+// (p_at) and its source covariance (sc_at), all values the caller already
+// loaded: HeldPoint for K1 and K5, K2's QuadPoint for one point of a quad.
 template <bool kSrcCovs, class Point>
 __device__ __forceinline__ void add_point_terms(float (&acc)[kOut], const float (&R)[3][3], const float (&t)[3],
                                                 const Point& pt, float m, float min_points, float eps) {
@@ -158,59 +159,117 @@ __device__ __forceinline__ void add_point_terms(float (&acc)[kOut], const float 
   acc[28] += m;
 }
 
-// Adds point i's 29 terms into acc (add_point_terms); mom and sc are planar
-// with row stride n.
-template <bool kSrcCovs>
-__device__ __forceinline__ void add_point(float (&acc)[kOut], const float (&R)[3][3], const float (&t)[3],
-                                          const float* __restrict__ p, const float* __restrict__ mom,
-                                          const float* __restrict__ sc, float m, float min_points,
-                                          float eps, int i, int n) {
-  add_point_terms<kSrcCovs>(acc, R, t, PlanarPoint{p, mom, sc, i, n}, m, min_points, eps);
+// One point's inputs, held in registers (K1, K5); sc is read only with
+// source covariances.
+struct HeldPoint {
+  float mom[10];
+  float p[3];
+  float sc[6];
+  __device__ __forceinline__ float mom_at(int k) const { return mom[k]; }
+  __device__ __forceinline__ float p_at(int k) const { return p[k]; }
+  __device__ __forceinline__ float sc_at(int k) const { return sc[k]; }
+};
+
+// Blocks of unary_partial for n points: one point a thread, at least 1, at
+// most kFinalRows. A function of n alone, so a shape always sums in the same
+// order.
+constexpr int unary_blocks(int n) {
+  return n < 1 ? 1 : ((n - 1) / kUnaryThreads + 1 < kFinalRows ? (n - 1) / kUnaryThreads + 1 : kFinalRows);
 }
 
-// The pose [4,4], row-major, at delta.
-__device__ __forceinline__ void load_pose(const float* __restrict__ delta, float (&R)[3][3], float (&t)[3]) {
+// K1's partial kernel (K5's with kWeights false): the pose, planar p [3,n],
+// moment rows mom [10,n], found bytes [n], weights [n] (kWeights) and source
+// covariances sc [6,n] (kSrcCovs, else eps I); one row of 29 partial sums a
+// block. Weights are a template flag, not a runtime test: a runtime test
+// took the unweighted eps kernel of the first design to 93 registers.
+template <bool kSrcCovs, bool kWeights>
+__global__ void __launch_bounds__(kUnaryThreads)
+unary_partial(const float* __restrict__ p, const float* __restrict__ mom, const uint8_t* __restrict__ found,
+              const float* __restrict__ weights, const float* __restrict__ sc, const float* __restrict__ delta,
+              float min_points, float eps, float* __restrict__ partial, int n) {
+  __shared__ float s_warp[kUnaryWarps][32];
+  float R[3][3], t[3];
+  load_pose(delta, R, t);
+
+  float acc[kOut];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
+  for (int k = 0; k < kOut; ++k) acc[k] = 0.0f;
+
+  const int stride = gridDim.x * kUnaryThreads;
+  for (int i = blockIdx.x * kUnaryThreads + threadIdx.x; i < n; i += stride) {
+    // every load of the point is issued before its gate is tested
+    const uint8_t f = __ldg(found + i);
+    const float w = kWeights ? __ldg(weights + i) : 1.0f;
+    HeldPoint pt;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = __ldg(delta + 4 * i + j);
-    t[i] = __ldg(delta + 4 * i + 3);
+    for (int k = 0; k < 10; ++k) pt.mom[k] = __ldg(mom + k * n + i);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pt.p[k] = __ldg(p + k * n + i);
+    if constexpr (kSrcCovs) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) pt.sc[k] = __ldg(sc + k * n + i);
+    }
+    add_point_terms<kSrcCovs>(acc, R, t, pt, f ? w : 0.0f, min_points, eps);
   }
+  block_sum_32(acc, s_warp, partial + blockIdx.x * kOut);
 }
 
-// The block's sum of acc into row[0..28]: each warp by shuffles, then the
-// warps in order.
-template <int kWarps>
-__device__ __forceinline__ void block_sum(const float (&acc)[kOut], float (&s_warp)[kWarps][kOut],
-                                          float* __restrict__ row) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kOut; ++k) {
-    const float v = warp_sum(acc[k]);
-    if (lane == 0) s_warp[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kOut) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += s_warp[w][threadIdx.x];
-    row[threadIdx.x] = s;
-  }
-}
-
-// Lane blockIdx.x's rows [num_blocks, 29] summed in block order: a fixed
-// order, so deterministic.
+// Lane blockIdx.x's rows [num_blocks, 29], num_blocks <= kFinalRows, staged
+// in shared memory with coalesced loads; thread t holds row t and the rows
+// are summed as the partial kernels sum their threads (block_sum_32): a
+// fixed tree.
 __global__ void __launch_bounds__(kFinalThreads)
 unary_final(const float* __restrict__ partial, int num_blocks, float* __restrict__ out) {
+  __shared__ float s_rows[kFinalRows * kOut];
+  __shared__ float s_warp[kFinalThreads / 32][32];
   const size_t b = blockIdx.x;
-  const int k = threadIdx.x;
-  if (k < kOut) {
-    const float* __restrict__ rows = partial + b * num_blocks * kOut;
-    float s = 0.0f;
-    for (int r = 0; r < num_blocks; ++r) s += rows[r * kOut + k];
-    out[b * kOut + k] = s;
+  const float* __restrict__ rows = partial + b * num_blocks * kOut;
+  // unrolled and guarded, so every load is in flight before the first store
+#pragma unroll
+  for (int j = 0; j < kFinalRows * kOut / kFinalThreads; ++j) {
+    const int k = threadIdx.x + j * kFinalThreads;
+    if (k < num_blocks * kOut) s_rows[k] = rows[k];
   }
+  __syncthreads();
+  const int t = threadIdx.x;
+  float row[kOut];
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) row[k] = t < num_blocks ? s_rows[t * kOut + k] : 0.0f;
+  block_sum_32(row, s_warp, out + b * kOut);
+}
+
+static_assert(kFinalThreads % 32 == 0, "the final pass is whole warps");
+static_assert(kFinalRows * kOut % kFinalThreads == 0, "the staging loop covers every row");
+
+// K1's pair on stream s: unary_partial on num_blocks = unary_blocks(n)
+// blocks, then unary_final. weights is read only with kWeights; a null sc
+// selects the eps mode. -> cudaGetLastError() after the launches (0 on
+// success), or cudaErrorInvalidValue for n < 0 or another num_blocks. Does
+// not synchronize.
+template <bool kWeights>
+int launch_unary(const void* p, const void* mom, const void* found, const void* weights, const void* sc,
+                 const void* delta, float min_points, float eps, void* partial, void* out, int n, int num_blocks,
+                 void* stream) {
+  if (n < 0 || num_blocks != unary_blocks(n)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fp = static_cast<const float*>(p);
+  const float* fmom = static_cast<const float*>(mom);
+  const uint8_t* ffound = static_cast<const uint8_t*>(found);
+  const float* fw = static_cast<const float*>(weights);
+  const float* fsc = static_cast<const float*>(sc);
+  const float* fdelta = static_cast<const float*>(delta);
+  float* fpartial = static_cast<float*>(partial);
+  if (fsc != nullptr) {
+    unary_partial<true, kWeights><<<num_blocks, kUnaryThreads, 0, s>>>(fp, fmom, ffound, fw, fsc, fdelta, min_points,
+                                                                       eps, fpartial, n);
+  } else {
+    unary_partial<false, kWeights><<<num_blocks, kUnaryThreads, 0, s>>>(fp, fmom, ffound, fw, fsc, fdelta, min_points,
+                                                                        eps, fpartial, n);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unary_final<<<1, kFinalThreads, 0, s>>>(fpartial, num_blocks, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

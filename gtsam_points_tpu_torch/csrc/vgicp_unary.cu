@@ -2,11 +2,14 @@
 //
 // Replaces: _vgicp_unary_kernel in gtsam_points_tpu/ops/pallas_linearize.py:500
 // (reached through _vgicp_unary_call and linearize_vgicp_unary, pallas_call at
-// :555). The per-point math is _unary_quantities (:656-735); here it is
-// add_point in csrc/unary_point.cuh, which K2 (csrc/vgicp_unary_batch.cu) and
-// K5 (csrc/vgicp_unary_dense.cu) call too, so the three cannot drift;
-// block_sum and unary_final, the reduction that ends the launch, live there
-// as well.
+// :555). The per-point math is _unary_quantities (:656-735).
+//
+// Where the code lives: this file holds K1's C entry. Its two kernels are in
+// csrc/unary_point.cuh: the partial kernel unary_partial<kSrcCovs, kWeights>,
+// which K5 (csrc/vgicp_unary_dense.cu) launches too, with weights off, and
+// the final pass unary_final, which K5 and K2 (csrc/vgicp_unary_batch.cu)
+// run too. The grid, unary_blocks(n), is there as well; this library exports
+// it as gpt_vgicp_unary_num_blocks.
 //
 // What it computes. For N source points p [3,N] with the raw moment row of
 // the voxel each one probed (momT [10,N]: count, sum p (3), sum ppᵀ upper
@@ -24,113 +27,76 @@
 // them into the 6x6 source block H_ss = [h11 sA; sAᵀ A] and b_s = -[p×u; u].
 //
 // What bounds it on an H100: each point reads p (12 B), momT (40 B), the found
-// byte, and C_s (24 B) or w (4 B) when given: at most 81 B a point, 2.0 MB at
-// the full 25088-slot scan, 0.6 us at 3.35 TB/s (0.08 us at a stride-8 stage).
-// The arithmetic is about 250 fp32 operations a point, 0.1 us at 67 TFLOP/s.
-// Both lie far below the few microseconds of a launch, so K1 is bound by
-// launch latency and the design spends nothing on tiling, TMA or tensor
-// cores: the TPU kernel's [32,128] VMEM accumulator and its [1,T] lane layout
-// are not carried over.
+// byte, and C_s (24 B) and w (4 B) when given: at most 81 B a point, 2.0 MB at
+// the full 25088-slot scan, 0.58 us at 3.35 TB/s, and 0.07 us at the
+// pyramid's stride-8 stage (N = 3136). The arithmetic is about 270 fp32
+// operations a point that passes the gate, 0.1 us at 67 TFLOP/s. Both lie
+// far below the latency of one launch (two launches take about 4 us at
+// N = 1), so the design spends nothing on wgmma, TMA or cp.async: there is
+// no matrix product to feed, and each thread issues its one point's loads at
+// once, so there is no stream of tiles for a copy engine to keep ahead of
+// the arithmetic. What is left to cut is the latency of one pass: the chain
+// of a thread's loads, its arithmetic, the block reduction and the final
+// pass. The TPU kernel's [32,128] VMEM accumulator and its [1,T] lane
+// layout are not carried over.
 //
-// Design: one thread per point in a grid-stride loop, the 29 running sums in
-// registers (every index is a compile-time constant after unrolling). A
-// warp-shuffle reduction and a shared-memory reduction over the block's warps
-// write one partial row per block, and a second kernel sums the rows in block
-// order. The partial kernel still reads its lane from blockIdx.y, which is
-// always 0: it was K2's kernel too until K2 got kernels of its own, and it is
-// kept as it was so that K1's results do not move by a bit. There are no
-// atomics, so two registrations from the same input give the same pose bit
-// for bit. The pose is read from a device pointer, so a Gauss-Newton loop
-// never reads it to the host between iterations. A null pointer for C_s
-// selects the eps mode; a null pointer for w means unit weights. Points with
-// m <= 0 are skipped: every sum is scaled by m, so they contribute nothing
-// (weights must be non-negative).
+// Design:
+// - One point a thread, blocks of 128 threads, unary_blocks(n) = ceil(n /
+//   128) blocks, at most 256 (a grid-stride loop beyond): 25, 49, 98 and 196
+//   blocks at the pyramid's four stages (N = 3136, 6272, 12544, 25088), so
+//   even the stride-8 stage spreads over a fifth of the 132 SMs. The grid
+//   depends on n alone, so a shape always sums in the same order.
+// - Every load of a point (the found byte, the weight, the ten moment rows,
+//   p and C_s) is issued before the gate is tested, so a thread waits on one
+//   trip to memory, not two. The raw-moment differences stay FMA-free
+//   (sub_prod) and points with m <= 0 are skipped (a branch: every sum is
+//   scaled by m, so they add nothing; weights must be non-negative).
+// - A block sums its threads' 29 values with block_sum_32 (csrc/reduce32.cuh:
+//   recursive halving, 31 shuffles a warp where a shuffle tree a column
+//   takes 145), then the warps in order, into one row.
+// - The final pass stages the rows in shared memory, one row a thread, and
+//   sums them with block_sum_32 again: a fixed tree. No atomics and no state
+//   between calls, so two calls on the same input agree bit for bit and the
+//   pair can be replayed in a CUDA graph. The pose is read from a device
+//   pointer, so a Gauss-Newton loop never reads it to the host.
+// - Two launches, not one. A one-launch variant, in which the block that drew
+//   the last ticket of an atomic counter summed the rows, took 4.40-4.47 us
+//   at N = 1 on an H100 against 3.95-4.03 us for the pair (PERF.md), and its
+//   counter breaks a replayed CUDA graph. A one-launch variant on a cluster
+//   of blocks summing through distributed shared memory read slower for K3
+//   (csrc/linearize_fused.cu); for K1 it is unmeasured.
 //
-// The voxel covariance comes from raw moments, s6/count - mu muᵀ, which
-// cancels in f32 far from the origin. Those six differences are rounded as
-// separate products and differences (no fused multiply-add), as the plain
-// PyTorch version computes them, so the kernel does not move the result of
-// that cancellation.
+// The first design (one point a thread on 256-thread blocks, 13 blocks at
+// stride 8 and 98 at N = 25088; the nine moment loads issued after the count
+// came back; a shuffle tree per column; one warp summing the rows in series)
+// took 10.3-11.8 us per launch pair at N = 25088 and 5.9-6.1 us at stride 8
+// on an H100 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "unary_point.cuh"
 
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// K1's blocks for lane blockIdx.y (always 0, see the note above), with the
-// pose, moment rows, found flags and weights (null: unit weights); one row of
-// partial sums per block. Weights are a template flag, not a runtime test: a
-// runtime test takes the unweighted eps kernel to 93 registers, 2 blocks an
-// SM instead of 3 at 80.
-template <bool kSrcCovs, bool kWeights>
-__global__ void __launch_bounds__(kThreads)
-unary_partial(const float* __restrict__ p, const float* __restrict__ mom_b,
-              const uint8_t* __restrict__ found_b, const float* __restrict__ weights_b,
-              const float* __restrict__ sc, const float* __restrict__ deltas, float min_points,
-              float eps, float* __restrict__ partial, int n) {
-  __shared__ float s_warp[kWarps][kOut];
-  const size_t b = blockIdx.y;
-  const float* __restrict__ mom = mom_b + b * 10 * n;
-  const uint8_t* __restrict__ found = found_b + b * n;
-  const float* __restrict__ weights = kWeights ? weights_b + b * n : nullptr;
-  float R[3][3], t[3];
-  load_pose(deltas + 16 * b, R, t);
-
-  float acc[kOut];
-#pragma unroll
-  for (int k = 0; k < kOut; ++k) acc[k] = 0.0f;
-
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const float m = found[i] ? (kWeights ? weights[i] : 1.0f) : 0.0f;
-    add_point<kSrcCovs>(acc, R, t, p, mom, sc, m, min_points, eps, i, n);
-  }
-  block_sum(acc, s_warp, partial + (b * gridDim.x + blockIdx.x) * kOut);
-}
-
-template <bool kSrcCovs, bool kWeights>
-void launch_partial(dim3 grid, cudaStream_t s, const float* p, const float* mom_b, const uint8_t* found_b,
-                    const float* weights_b, const float* sc, const float* deltas, float min_points, float eps,
-                    float* partial, int n) {
-  unary_partial<kSrcCovs, kWeights><<<grid, kThreads, 0, s>>>(p, mom_b, found_b, weights_b, sc, deltas,
-                                                              min_points, eps, partial, n);
-}
-
-}  // namespace
-
 extern "C" {
 
-int gpt_vgicp_unary_threads() { return kThreads; }
+int gpt_vgicp_unary_threads() { return kUnaryThreads; }
 int gpt_vgicp_unary_out_len() { return kOut; }
+int gpt_vgicp_unary_num_blocks(int n) { return unary_blocks(n); }
 
-// p [3,n], mom [10,n], found [n] bytes, weights [n] or null, sc [6,n] or null
-// (null: eps mode), delta [4,4]; partial: [num_blocks, 29] scratch; out: [29].
-// Returns cudaGetLastError() after the launches (0 on success). Does not
+// p [3,n], mom [10,n], found [n] bytes, weights [n] or null (null: unit
+// weights), sc [6,n] or null (null: eps mode), delta [4,4]; partial:
+// [num_blocks, 29] scratch with num_blocks = gpt_vgicp_unary_num_blocks(n);
+// out: [29]. Returns cudaGetLastError() after the launches (0 on success),
+// or cudaErrorInvalidValue for n < 0 or another num_blocks. Does not
 // synchronize.
 int gpt_vgicp_unary(const void* p, const void* mom, const void* found, const void* weights,
                     const void* sc, const void* delta, float min_points, float eps, void* partial,
                     void* out, int n, int num_blocks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fp = static_cast<const float*>(p);
-  const float* fmom = static_cast<const float*>(mom);
-  const uint8_t* ffound = static_cast<const uint8_t*>(found);
-  const float* fw = static_cast<const float*>(weights);
-  const float* fsc = static_cast<const float*>(sc);
-  const float* fdelta = static_cast<const float*>(delta);
-  float* fpartial = static_cast<float*>(partial);
-  const dim3 grid(num_blocks, 1);
-  auto* partial_kernel = fsc != nullptr ? (fw != nullptr ? launch_partial<true, true> : launch_partial<true, false>)
-                                        : (fw != nullptr ? launch_partial<false, true> : launch_partial<false, false>);
-  partial_kernel(grid, s, fp, fmom, ffound, fw, fsc, fdelta, min_points, eps, fpartial, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  unary_final<<<1, kFinalThreads, 0, s>>>(fpartial, num_blocks, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return weights != nullptr
+             ? launch_unary<true>(p, mom, found, weights, sc, delta, min_points, eps, partial, out, n, num_blocks,
+                                  stream)
+             : launch_unary<false>(p, mom, found, weights, sc, delta, min_points, eps, partial, out, n, num_blocks,
+                                   stream);
 }
 
 }  // extern "C"

@@ -13,6 +13,12 @@
 // the FMA-free moment differences, the determinant rule and the skip of
 // points with m <= 0 (a branch) are K1's; only the order of the sums differs.
 //
+// Where the code lives: this file holds K2's partial kernel and its grid,
+// batch_blocks(n), which the library exports as
+// gpt_vgicp_unary_batch_num_blocks and the wrapper checks against its own
+// when it loads the library. The final pass is unary_final in
+// csrc/unary_point.cuh, the one K1 and K5 run.
+//
 // What bounds it on an H100: at B = 64 lanes of N = 25088 points each lane
 // reads its own moment rows and flags, 41 B a point, 65.8 MB in all, 19.6 us
 // at 3.35 TB/s, while the shared p and C_s (0.9 MB) stay in the 50 MB L2. A
@@ -57,11 +63,12 @@
 // - Each block sums its threads' 29 sums into one row (block_sum_32 in
 //   csrc/reduce32.cuh: recursive halving in each warp, 31 shuffles where a
 //   shuffle tree a column takes 145, then the warps in order).
-// - Final pass. One block of 256 threads per lane stages the lane's rows in
-//   shared memory with coalesced loads, all in flight at once; thread t takes
-//   row t and the rows are summed by block_sum_32 again: a fixed tree. No
-//   atomics and no state between calls, so two calls on the same input agree
-//   bit for bit and the pair can be replayed in a CUDA graph.
+// - Final pass (unary_final, shared with K1 and K5). One block of 256
+//   threads per lane stages the lane's rows in shared memory with coalesced
+//   loads, all in flight at once; thread t takes row t and the rows are
+//   summed by block_sum_32 again: a fixed tree. No atomics and no state
+//   between calls, so two calls on the same input agree bit for bit and the
+//   pair can be replayed in a CUDA graph.
 // - Staging through shared memory (cp.async or TMA) is not used: the quads
 //   already put 41 B a point in flight per thread before any arithmetic, the
 //   pair is within 2x of its byte bound (PERF.md), and a ring of tiles would
@@ -79,9 +86,8 @@ constexpr int kThreads = 64;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocksPerSM = 8;  // caps the registers at 128: 16 warps an SM
 constexpr int kQuadsPerThread = 1;  // 4 points a thread, before the grid strides
-constexpr int kMaxBlocks = 256;     // blocks a lane; the final pass holds one row a thread
-constexpr int kBatchFinalThreads = kMaxBlocks;
-constexpr int kMaxLanes = 65535;  // lanes run on gridDim.y
+constexpr int kMaxBlocks = kFinalRows;  // blocks a lane; unary_final holds one row a thread
+constexpr int kMaxLanes = 65535;        // lanes run on gridDim.y
 
 // Blocks a lane for n points: about kQuadsPerThread quads a thread, at most
 // kMaxBlocks. A function of n alone.
@@ -168,38 +174,12 @@ unary_batch_partial(const float* __restrict__ p, const float* __restrict__ mom_b
   block_sum_32(acc, s_warp, partial + (b * gridDim.x + blockIdx.x) * kOut);
 }
 
-// Lane blockIdx.x's rows [num_blocks, 29], staged in shared memory with
-// coalesced loads; thread t holds row t and the rows are summed as the
-// partial kernel sums its threads (block_sum_32): a fixed tree.
-__global__ void __launch_bounds__(kBatchFinalThreads)
-unary_batch_final(const float* __restrict__ partial, int num_blocks, float* __restrict__ out) {
-  __shared__ float s_rows[kMaxBlocks * kOut];
-  __shared__ float s_warp[kBatchFinalThreads / 32][32];
-  const size_t b = blockIdx.x;
-  const float* __restrict__ rows = partial + b * num_blocks * kOut;
-  // unrolled and guarded, so every load is in flight before the first store
-#pragma unroll
-  for (int j = 0; j < kMaxBlocks * kOut / kBatchFinalThreads; ++j) {
-    const int k = threadIdx.x + j * kBatchFinalThreads;
-    if (k < num_blocks * kOut) s_rows[k] = rows[k];
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  float row[kOut];
-#pragma unroll
-  for (int k = 0; k < kOut; ++k) row[k] = t < num_blocks ? s_rows[t * kOut + k] : 0.0f;
-  block_sum_32(row, s_warp, out + b * kOut);
-}
-
 template <bool kSrcCovs, bool kVec>
 void launch_partial(dim3 grid, cudaStream_t s, const float* p, const float* mom_b, const uint8_t* found_b,
                     const float* sc, const float* deltas, float min_points, float eps, float* partial, int n) {
   unary_batch_partial<kSrcCovs, kVec><<<grid, kThreads, 0, s>>>(p, mom_b, found_b, sc, deltas, min_points, eps,
                                                                 partial, n);
 }
-
-static_assert(kBatchFinalThreads % 32 == 0, "the final pass is whole warps");
-static_assert(kMaxBlocks * kOut % kBatchFinalThreads == 0, "the staging loop covers every row");
 
 }  // namespace
 
@@ -208,11 +188,12 @@ extern "C" {
 int gpt_vgicp_unary_batch_threads() { return kThreads; }
 int gpt_vgicp_unary_batch_out_len() { return kOut; }
 int gpt_vgicp_unary_batch_max_lanes() { return kMaxLanes; }
+int gpt_vgicp_unary_batch_num_blocks(int n) { return batch_blocks(n); }
 
 // p [3,n] and sc [6,n] or null (null: eps mode) shared by the lanes;
 // mom_b [lanes,10,n], found_b [lanes,n] bytes, deltas [lanes,4,4]; partial:
 // [lanes, num_blocks, 29] scratch; out: [lanes, 29]. num_blocks must be
-// batch_blocks(n) (unary_batch_num_blocks in the wrapper). Returns cudaGetLastError() after the
+// gpt_vgicp_unary_batch_num_blocks(n). Returns cudaGetLastError() after the
 // launches (0 on success), or cudaErrorInvalidValue for n < 0, another
 // num_blocks, or lanes outside 1 .. gpt_vgicp_unary_batch_max_lanes(). Does
 // not synchronize.
@@ -239,8 +220,8 @@ int gpt_vgicp_unary_batch(const void* p, const void* mom_b, const void* found_b,
                  static_cast<float*>(partial), n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  unary_batch_final<<<lanes, kBatchFinalThreads, 0, s>>>(static_cast<const float*>(partial), num_blocks,
-                                                    static_cast<float*>(out));
+  unary_final<<<lanes, kFinalThreads, 0, s>>>(static_cast<const float*>(partial), num_blocks,
+                                              static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

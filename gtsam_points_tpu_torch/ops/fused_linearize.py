@@ -26,12 +26,13 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
   csrc/vgicp_moments.cu (or raises); on a CPU tensor it takes
   `linearize_vgicp_moments_plain`, the port of `linearize_vgicp_moments_xla`.
   `vgicp_scan_linearize` is the single-scan entry point: probe, then K4.
-- K5, `linearize_vgicp_unary_dense`: K1's contract without weights, over
-  the dense [8, N/8] view of the planes, eight points a thread. On a CUDA
-  tensor it launches csrc/vgicp_unary_dense.cu (or raises); on a CPU tensor
-  it takes `linearize_vgicp_unary_dense_plain`, which is K1's plain version
-  (called without weights), as the reference falls back to the same XLA
-  twin off the TPU.
+- K5, `linearize_vgicp_unary_dense`: K1's contract without weights. On a
+  CUDA tensor it launches csrc/vgicp_unary_dense.cu (or raises), which runs
+  K1's partial kernel with weights off on K1's grid, so it equals K1 called
+  without weights bit for bit; on a CPU tensor it takes
+  `linearize_vgicp_unary_dense_plain`, which is K1's plain version (called
+  without weights), as the reference falls back to the same XLA twin off
+  the TPU.
 - `probe_moments`: transform + hash probe -> the raw moment rows K1 and K4 read.
   The reference selects the matched record with two 0/1 matmuls, a TPU
   device whose sums hold exactly one nonzero term; here the record picked by
@@ -40,6 +41,10 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
 `launches`, `unary_launches`, `unary_batch_launches`, `moments_launches` and
 `dense_launches` count the kernel launches of K3, K1, K2, K4 and K5, so a run
 can show that its main path went through the kernels.
+
+Each grid is a function of N alone, so a shape always sums in the same
+order. K1's, K5's and K2's libraries export theirs; a wrapper checks the
+library's grid against its own when it first loads the library.
 """
 
 from __future__ import annotations
@@ -219,9 +224,12 @@ def error_fused(p_src, mu, W6, mask, delta) -> torch.Tensor:
 # K1: unary VGICP linearize from raw voxel moments
 # ---------------------------------------------------------------------------
 
-_UNARY_THREADS = 256  # csrc/vgicp_unary.cu kThreads
+_UNARY_THREADS = 128  # csrc/unary_point.cuh kUnaryThreads: K1's and K5's blocks
 _UNARY_OUT = 29  # h11 (6), sA (9), A (6), p x u (3), u (3), error, weighted count
-_UNARY_MAX_BLOCKS = 1024
+_FINAL_ROWS = 256  # its kFinalRows: unary_final sums at most 256 rows (blocks) a lane
+# sizes at which a wrapper holds its library's grid to its own
+_GRID_PROBES = (0, 1, 127, 128, 129, 255, 256, 257, 1000, 3136, 6272, 12544, 25087, 25088, 32768, 32769,
+                262144, 10**6, 10**8)
 
 # [6, 6] H_ss = [[h11, sA], [sAᵀ, A]] as positions in the 29 sums
 _UNARY_H = [
@@ -236,9 +244,16 @@ _unary_h_index: Dict[torch.device, torch.Tensor] = {}
 
 
 def unary_num_blocks(n: int) -> int:
-    """K1's grid: one point a thread, at most 1024 blocks. It depends on n
-    alone, so the summation order, and the result, is fixed for a shape."""
-    return max(1, min(-(-n // _UNARY_THREADS), _UNARY_MAX_BLOCKS))
+    """K1's grid, which K5 runs too: one point a thread, at most 256 blocks
+    (the rows the final pass sums). It depends on n alone, so the summation
+    order, and the result, is fixed for a shape."""
+    return max(1, min(-(-n // _UNARY_THREADS), _FINAL_ROWS))
+
+
+def _grid_matches(lib_grid, grid) -> bool:
+    """Whether a library's exported grid function agrees with the wrapper's
+    at every size of _GRID_PROBES."""
+    return all(lib_grid(n) == grid(n) for n in _GRID_PROBES)
 
 
 def _unary_library():
@@ -251,7 +266,8 @@ def _unary_library():
             [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_float]
             + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
-        if lib.gpt_vgicp_unary_out_len() != _UNARY_OUT or lib.gpt_vgicp_unary_threads() != _UNARY_THREADS:
+        if (lib.gpt_vgicp_unary_out_len() != _UNARY_OUT or lib.gpt_vgicp_unary_threads() != _UNARY_THREADS
+                or not _grid_matches(lib.gpt_vgicp_unary_num_blocks, unary_num_blocks)):
             raise RuntimeError("csrc/vgicp_unary.cu does not match its wrapper")
     return fn
 
@@ -428,22 +444,12 @@ def probe_moments(vmap: GaussianVoxelMap, p_src: torch.Tensor, mask: torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# K5: K1's sums without weights over the dense view
+# K5: K1's sums without weights, on K1's partial kernel
 # ---------------------------------------------------------------------------
-
-_DENSE_THREADS = 128  # csrc/vgicp_unary_dense.cu kThreads
-_DENSE_ROWS = 8  # its kRows: the rows of the dense view, points a thread
-
-
-def unary_dense_num_blocks(n: int) -> int:
-    """K5's grid for n >= 1 points: one thread a column of the [8, ceil(n/8)]
-    view, _DENSE_THREADS columns a block."""
-    cols = -(-n // _DENSE_ROWS)
-    return -(-cols // _DENSE_THREADS)
 
 
 def _unary_dense_library():
-    """K5's launcher, csrc/vgicp_unary_dense.cu."""
+    """K5's launcher, csrc/vgicp_unary_dense.cu, on K1's grid."""
     lib = _build.load("vgicp_unary_dense")
     fn = lib.gpt_vgicp_unary_dense
     if fn.argtypes is None:  # first use in this process
@@ -453,8 +459,8 @@ def _unary_dense_library():
             + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         if (lib.gpt_vgicp_unary_dense_out_len() != _UNARY_OUT
-                or lib.gpt_vgicp_unary_dense_threads() != _DENSE_THREADS
-                or lib.gpt_vgicp_unary_dense_rows() != _DENSE_ROWS):
+                or lib.gpt_vgicp_unary_dense_threads() != _UNARY_THREADS
+                or not _grid_matches(lib.gpt_vgicp_unary_num_blocks, unary_num_blocks)):
             raise RuntimeError("csrc/vgicp_unary_dense.cu does not match its wrapper")
     return fn
 
@@ -473,7 +479,7 @@ def linearize_vgicp_unary_dense_cuda(
     if n < 1:
         raise ValueError("linearize_vgicp_unary_dense_cuda needs at least one point")
     fn = _unary_dense_library()
-    blocks = unary_dense_num_blocks(n)
+    blocks = unary_num_blocks(n)  # K1's grid
     partial = torch.empty((blocks, _UNARY_OUT), dtype=torch.float32, device=dev)
     out = torch.empty((_UNARY_OUT,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -516,7 +522,7 @@ def linearize_vgicp_unary_dense(
 
 _BATCH_THREADS = 64  # csrc/vgicp_unary_batch.cu kThreads
 _BATCH_POINTS_PER_THREAD = 4  # its kQuadsPerThread quads of four points
-_BATCH_MAX_BLOCKS = 256  # its kMaxBlocks, blocks a lane
+_BATCH_MAX_BLOCKS = _FINAL_ROWS  # its kMaxBlocks, blocks a lane
 _BATCH_MAX_LANES = 65535  # its kMaxLanes: the lanes run on gridDim.y
 
 
@@ -539,7 +545,8 @@ def _unary_batch_library():
         )
         if (lib.gpt_vgicp_unary_batch_out_len() != _UNARY_OUT
                 or lib.gpt_vgicp_unary_batch_threads() != _BATCH_THREADS
-                or lib.gpt_vgicp_unary_batch_max_lanes() != _BATCH_MAX_LANES):
+                or lib.gpt_vgicp_unary_batch_max_lanes() != _BATCH_MAX_LANES
+                or not _grid_matches(lib.gpt_vgicp_unary_batch_num_blocks, unary_batch_num_blocks)):
             raise RuntimeError("csrc/vgicp_unary_batch.cu does not match its wrapper")
     return fn
 
@@ -627,6 +634,16 @@ def linearize_vgicp_unary_batch(
 # K4: full 12x12 VGICP linearize from raw voxel moments
 # ---------------------------------------------------------------------------
 
+_MOMENTS_THREADS = 256  # csrc/vgicp_moments.cu kThreads
+_MOMENTS_MAX_BLOCKS = 1024
+
+
+def moments_num_blocks(n: int) -> int:
+    """K4's grid: one point a thread on blocks of 256, at most 1024 blocks.
+    It depends on n alone, so the summation order, and the result, is fixed
+    for a shape."""
+    return max(1, min(-(-n // _MOMENTS_THREADS), _MOMENTS_MAX_BLOCKS))
+
 
 def _moments_library():
     """K4's launcher, csrc/vgicp_moments.cu."""
@@ -638,7 +655,7 @@ def _moments_library():
             [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float]
             + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
-        if lib.gpt_vgicp_moments_out_len() != _OUT or lib.gpt_vgicp_moments_threads() != _UNARY_THREADS:
+        if lib.gpt_vgicp_moments_out_len() != _OUT or lib.gpt_vgicp_moments_threads() != _MOMENTS_THREADS:
             raise RuntimeError("csrc/vgicp_moments.cu does not match its wrapper")
     return fn
 
@@ -661,7 +678,7 @@ def linearize_vgicp_moments_cuda(
     if src_covs6 is not None:
         _check("src_covs6", src_covs6, (6, n), torch.float32, dev)
     fn = _moments_library()
-    blocks = unary_num_blocks(n)  # K1's grid: one point a thread
+    blocks = moments_num_blocks(n)
     partial = torch.empty((blocks, _OUT), dtype=torch.float32, device=dev)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -175,5 +175,5 @@ def test_unary_wrapper_layout_and_device_rule(box):
     assert FL.unary_launches == before
     with pytest.raises(ValueError):
         FL.linearize_vgicp_unary_cuda(*args)
-    assert FL.unary_num_blocks(1) == 1 and FL.unary_num_blocks(25_088) == 98
-    assert FL.unary_num_blocks(3_136) == 13 and FL.unary_num_blocks(10**8) == 1024
+    assert FL.unary_num_blocks(1) == 1 and FL.unary_num_blocks(25_088) == 196
+    assert FL.unary_num_blocks(3_136) == 25 and FL.unary_num_blocks(10**8) == 256

@@ -132,5 +132,5 @@ def test_unary_dense_wrapper_checks_and_device_rule(box):
     with pytest.raises(ValueError, match="contiguous"):
         FL.linearize_vgicp_unary_dense_cuda(strided, momT, found, delta, 3.0, EPS, covs6)
     assert FL.dense_launches == before
-    # one thread a column of the [8, ceil(N/8)] view, 128 columns a block
-    assert [FL.unary_dense_num_blocks(n) for n in (1, 8, 1024, 1025, 3136, 4097, 25_088)] == [1, 1, 1, 2, 4, 5, 25]
+    # K1's grid: one point a thread, 128 points a block
+    assert [FL.unary_num_blocks(n) for n in (1, 8, 1024, 1025, 3136, 4097, 25_088)] == [1, 1, 8, 9, 25, 33, 196]
