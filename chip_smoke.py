@@ -4,11 +4,14 @@
 Run from the root of a checkout:
 
     python3 chip_smoke.py                     # the check, one card
-    python3 chip_smoke.py --profile out.txt   # also trace three odometry steps,
-                                              # the eight registrations, 100
-                                              # single-scan linearizes on K4
-                                              # and 100 on K5, and 100 batched
-                                              # ones; the tables go to out.txt,
+    python3 chip_smoke.py --profile out.txt   # also trace three odometry steps
+                                              # (graph and eager), take the
+                                              # census of one LM iteration by
+                                              # source, trace the eight
+                                              # registrations, 100 single-scan
+                                              # linearizes on K4 and 100 on K5,
+                                              # and 100 batched ones; the tables
+                                              # go to out.txt, out_eager.txt,
                                               # out_pyramid.txt, out_scan.txt,
                                               # out_dense.txt, out_batch.txt
     python3 chip_smoke.py --k3-witness TREE   # only K3 of the checkout at TREE
@@ -35,12 +38,19 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      float64, recorded and not gated;
   4. the odometry path at a real size: point-path VGICP scan-to-map odometry
      with 25k-point scans of a 400k-point ring world into the default
-     262144-voxel map, through init_odometry and make_odometry_stepper; K3's
-     launch count must rise by at least one per LM outer iteration; K3's
-     device us per launch pair at the path's own shape and on phase 3's N =
-     1 and N = 25000 payloads, taken after the step times;
-  5. five steps through the CUDA path and through the plain path on the card,
-     held to a stated bound per pose;
+     262144-voxel map, through init_odometry and make_odometry_stepper, whose
+     registration is one CUDA graph replayed a step (all 10 LM iterations,
+     no host read); the step median, min and max over the 24 steps; K3's
+     launch count (10 a replay, added by the stepper) must be at least the LM
+     iterations; K3's device us per launch pair at the path's own shape and
+     on phase 3's N = 1 and N = 25000 payloads, taken after the step times;
+     with --profile, three graph steps and three eager ones traced (busy
+     share, kernels, launches, graph launches and host reads a step) and the
+     census: each piece of one LM iteration run alone, its kernels and
+     device us;
+  5. the 24 steps through the graph stepper and through the eager
+     odometry_step, equal bit for bit; then five steps through the CUDA path
+     and through the plain path on the card, held to a stated bound per pose;
   6. the pyramid's inputs (scan 0's DEFAULT_STAGES pyramid, scan 1 with its
      covariances) built twice on the card, which must agree bit for bit, and
      once on the CPU; the card's maps and covariances held to the CPU's, and
@@ -63,11 +73,14 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      built on the card and built on the CPU; then one digest line, the
      sha256 of phase 7's K1 outputs and phase 8's poses from card-built
      inputs, by which two trees' runs show whether K1 moved by a bit;
-  9. K4 (csrc/vgicp_moments.cu) against its plain PyTorch version on the
-     card, on scan 1 against scan 0's leaf-1.0 map: N = 1, 1000, 25087 and
-     25088 and half the mask False, with and without source covariances,
-     each at the identity and at a pose off it, and at the pose the card's
-     registration of scan 1 found;
+  9. K4 (csrc/vgicp_moments.cu: K1's partial kernel on K1's grid, then its
+     own final pass that expands K1's 29 sums to the 12x12 system) against
+     its plain PyTorch version on the card, on scan 1 against scan 0's
+     leaf-1.0 map: N = 1, 1000, 25087 and 25088 and half the mask False,
+     with and without source covariances, each at the identity and at a pose
+     off it, and at the pose the card's registration of scan 1 found; each
+     case twice, equal bit for bit, and its source block equal to K1's
+     without weights bit for bit;
  10. the single-scan linearize path at a real size, the race bench.py runs:
      vgicp_scan_linearize (K4) against lookup_fetch_planar + sym_inv + K3,
      probe_moments + K1, probe_moments + K5 (bench.py's `unary_dense`), and
@@ -135,10 +148,6 @@ PEAK_FP32_FLOPS = 67e12
 # q = R p 15, residual 6, u = W r 15, skew(q) W 27, h11 18, q x u 9, error 5,
 # 29 sums (the 29 -> 92 expansion is done once a call).
 K3_FLOPS_PER_POINT = 124
-# The 92 direct sums per point, as K4 computes them (csrc/vgicp_moments.cu):
-# transform 18, residual 3, -R skew(p) 27, W r 15, W J 180, H upper triangle
-# 78 x 6 = 468, g 12 x 6 = 72, error 6, count 1.
-DIRECT_FLOPS_PER_POINT = 790
 K3_BYTES_PER_POINT = 12 + 12 + 24 + 1  # p, mu, W6 (f32) and the mask byte
 # K1 fp32 operations per point that passes its gate, counted from
 # add_point_terms in csrc/unary_point.cuh: moment finalize 22, Rᵀ C_t R 75, + C_s 6, inverse and
@@ -170,6 +179,8 @@ POSE_BOUND_RAD = 1e-3
 # python3 tests/test_torch_real_size.py --steps 24 --inits 0 --orders 0
 # --odometry-orders 4`), so 3.44e-2 m is the per-pose bound such sums allow
 # along the corridor, and the 10% (0.38 m on the max) leaves room for it.
+# The step limit: one period of a 10 Hz LiDAR (PERF.md section 2).
+STEP_LIMIT_MS = 100.0
 ATE_JAX_MEAN_M = 2.134785
 ATE_JAX_MAX_M = 3.793032
 ATE_SLACK = 1.10
@@ -218,10 +229,12 @@ K1_TWIST = [0.01, -0.02, 0.015, 0.1, -0.05, 0.08]
 # K4 against its plain version, and the race's routes against each other,
 # error over max|ref| per field; the inlier counts exactly
 K4_TOL = 1e-4
-# K4 fp32 operations per point that passes its gate, counted from
-# csrc/vgicp_moments.cu: the 790 of the direct sums, the moment finalize 22,
-# the 3x3 inverse 45, and R C_s Rᵀ + C_t 81 (3 for eps I).
-K4_FLOPS_PER_POINT = {True: DIRECT_FLOPS_PER_POINT + 22 + 45 + 81, False: DIRECT_FLOPS_PER_POINT + 22 + 45 + 3}
+# K4 fp32 operations per point that passes its gate: K1's (csrc/vgicp_moments.cu
+# runs K1's partial kernel), with eps I (3) in place of + C_s (6) in eps mode;
+# the 29 -> 92 expansion is done once a call.
+K4_FLOPS_PER_POINT = {True: K1_FLOPS_PER_POINT, False: K1_FLOPS_PER_POINT - 3}
+# K4's kernels in a profiler's trace: K1's partial kernel and its own final
+K4_KERNELS = ("unary_partial", "moments_final")
 RACE_CALLS = 200
 # K2 (the batched unary linearize) raced as the batched dispatch gate of
 # scripts/tpu_parity.py races it: B = 64 lanes over one 25088-slot source,
@@ -572,20 +585,32 @@ def _ring_frames(torch, n_poses: int):
     return T_true, scans, frames, priors
 
 
-def _run_odometry(torch, frames, priors, steps: int):
-    """`steps` odometry steps; step i gets priors[i] as its motion prior."""
+def _run_odometry(torch, frames, priors, steps: int, eager: bool = False, start=None):
+    """`steps` odometry steps; step i gets priors[i] as its motion prior.
+    Through make_odometry_stepper (one CUDA graph replay a step), or with
+    `eager` through odometry_step. `start` = (state, stepper) continues a
+    run instead of starting one from frames[0]; frames[0] and priors[0] are
+    then the first step's."""
     from gtsam_points_tpu_torch.pipelines.odometry import (
         OdometryParams,
         init_odometry,
         make_odometry_stepper,
+        odometry_step,
     )
 
     params = OdometryParams()
-    state = init_odometry(frames[0], params, device="cuda")
-    step = make_odometry_stepper(params, device="cuda")
+    if start is None:
+        state = init_odometry(frames[0], params, device="cuda")
+        step = make_odometry_stepper(params, device="cuda")
+        frames = frames[1:]
+    else:
+        state, step = start
+    if eager:
+        def step(state, f, prior):  # noqa: F811
+            return odometry_step(state, f, params, prior)
     poses = [state.T_world]
     iters, step_ms, merges = [], [], 0
-    for f, prior in zip(frames[1 : steps + 1], priors):
+    for f, prior in zip(frames[:steps], priors):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, T, diag = step(state, f, prior)
@@ -626,8 +651,11 @@ def phase_main_path(torch, profile: Optional[str], k3_payloads: dict):
     log(f"[main] LM iterations per step {iters} (total {sum(iters)}); "
         f"K3 launches {launches} ({launches / sum(iters):.3f} per LM iteration, "
         f"{launches / REAL_STEPS:.3f} per step); K1 launches {k1_launches}")
-    log(f"[main] step ms median {statistics.median(step_ms):.3f} "
-        f"(first {step_ms[0]:.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f})")
+    log(f"[main] graph stepper: step ms over {len(step_ms)} steps median {statistics.median(step_ms):.3f}, "
+        f"min {min(step_ms):.3f}, max {max(step_ms):.3f} (first, with the capture: {step_ms[0]:.3f}); "
+        f"limit {STEP_LIMIT_MS} ms, one 10 Hz LiDAR period")
+    if statistics.median(step_ms) > STEP_LIMIT_MS:
+        raise AssertionError(f"the median step takes more than {STEP_LIMIT_MS} ms")
     ate_mean, ate_max = float(trans_e.mean()), float(trans_e.max())
     log(f"[main] ATE translation mean {ate_mean:.6f} m max {ate_max:.6f} m; "
         f"rotation max {float(rot_e.max()):.6f} rad (bound: the JAX package's mean "
@@ -637,6 +665,7 @@ def phase_main_path(torch, profile: Optional[str], k3_payloads: dict):
 
     if profile:
         _profile_steps(torch, frames, priors, profile)
+        _census(torch, frames, priors, profile)
 
     # K3 at the main path's own shape: the last frame against the final map
     factor = VGICPFactor(
@@ -658,11 +687,12 @@ def phase_main_path(torch, profile: Optional[str], k3_payloads: dict):
     return scans, frames, priors, r
 
 
-def _trace(torch, label: str, run, unit: str, key: str, path: str) -> None:
+def _trace(torch, label: str, run, unit: str, key: str, path: str, per_step: int = 0) -> None:
     """`run()` -> (wall ms, units of work), three times in this process:
     untraced, traced with device activity only (the busy share), and traced
-    with host ops too (launch and host-read counts; the table goes to
-    `path`). `key` names the kernels whose device time is also given alone."""
+    with host ops too (launch, graph-launch and host-read counts; the table
+    goes to `path`). `key` names the kernels whose device time is also given
+    alone. With `per_step`, counts are also given per step of that many."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -675,39 +705,172 @@ def _trace(torch, label: str, run, unit: str, key: str, path: str) -> None:
     # kernel rows only; one stream, so their times do not overlap
     kernels = [e for e in prof.key_averages() if e.device_type == kernel_type]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    key_ms = sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
-    key_pairs = sum(e.count for e in kernels if key in e.key) / 2  # partial + final
+    key_ms = sum(e.self_device_time_total for e in kernels if _named(e.key, key)) / 1e3
+    key_pairs = sum(e.count for e in kernels if _named(e.key, key)) / 2  # partial + final
     n_kernels = sum(e.count for e in kernels)
     per_pair = f"{key_ms * 1e3 / key_pairs:.3f} us" if key_pairs else "not measured"
     log(f"[profile] the same {label} traced with device activity only: wall {traced_ms:.3f} ms, "
         f"device kernel time {device_ms:.3f} ms, busy {100 * device_ms / traced_ms:.2f}% of the traced "
-        f"wall; {n_kernels} kernels ({n_kernels / units:.1f} per {unit}), '{key}' kernels {key_ms:.3f} ms "
+        f"wall; {n_kernels} kernels ({n_kernels / units:.1f} per {unit}), '{_key_text(key)}' kernels {key_ms:.3f} ms "
         f"in {key_pairs:g} launch pairs, {per_pair} per pair")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         host_ms, units = run()
     events = prof.key_averages()
     n_launch = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    n_graph = sum(e.count for e in events if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch")))
     n_sync = sum(e.count for e in events if e.key == "cudaStreamSynchronize")  # host reads
     with open(path, "w") as fh:
         fh.write(events.table(sort_by="self_device_time_total", row_limit=80))
+    steps = (f"; per step: {n_kernels / per_step:.1f} kernels, {device_ms / per_step:.3f} ms of device time, "
+             f"{n_launch / per_step:.1f} launches, {n_graph / per_step:.1f} graph launches, "
+             f"{n_sync / per_step:.1f} host reads") if per_step else ""
     log(f"[profile] the same {label} traced with host ops: wall {host_ms:.3f} ms, {n_launch} kernel "
-        f"launches ({n_launch / units:.1f} per {unit}), {n_sync} host reads; table in {path}")
+        f"launches ({n_launch / units:.1f} per {unit}), {n_graph} graph launches, {n_sync} host reads"
+        f"{steps}; table in {path}")
 
 
 def _profile_steps(torch, frames, priors, path: str) -> None:
-    """Three odometry steps, traced (see _trace)."""
+    """Three odometry steps (2..4) traced (see _trace): through the graph
+    stepper, captured at step 1 before the traces, and through the eager
+    odometry_step."""
+    from gtsam_points_tpu_torch.pipelines.odometry import OdometryParams, init_odometry, make_odometry_stepper
 
-    def run():
-        _, _, iters, step_ms, _ = _run_odometry(torch, frames, priors, 3)
-        return sum(step_ms), sum(iters)
+    params = OdometryParams()
+    step = make_odometry_stepper(params, device="cuda")
+    state, _, _ = step(init_odometry(frames[0], params, device="cuda"), frames[1], priors[0])
+    root, ext = os.path.splitext(path)
+    for label, eager, out in (("graph", False, path), ("eager", True, f"{root}_eager{ext}")):
+        def run():
+            _, _, iters, step_ms, _ = _run_odometry(torch, frames[2:], priors[1:], 3, eager, (state, step))
+            return sum(step_ms), sum(iters)
 
-    _trace(torch, "3 odometry steps", run, "LM iteration", "linearize_", path)
+        _trace(torch, f"3 odometry steps, {label}", run, "LM iteration", "linearize_", out, per_step=3)
+
+
+def _census_piece(torch, fn, reps: int = 20) -> tuple:
+    """(kernels, device us) per call of fn, from one trace of `reps` calls:
+    every device activity the profiler records (kernels, copies, fills)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in rows) / reps, sum(e.self_device_time_total for e in rows) / reps
+
+
+def _census(torch, frames, priors, path: str) -> None:
+    """The census of one odometry step by source: each piece of the graph's
+    registration run alone at the main path's shape (frame 4 against the map
+    after three steps), its kernels and device us per call. Pieces that
+    contain others are given, and what they add on their own is their total
+    less the parts. Then what a step adds up to by these counts."""
+    from gtsam_points_tpu_torch.factors.vgicp import VGICPFactor
+    from gtsam_points_tpu_torch.optim import lm as LM
+    from gtsam_points_tpu_torch.optim.graph import FactorGraph, retract
+    from gtsam_points_tpu_torch.pipelines import odometry as O
+    from gtsam_points_tpu_torch.utils import se3
+
+    params = O.OdometryParams()
+    p = O._lm_params(params)
+    state, _, _, _, _ = _run_odometry(torch, frames, priors, 3, eager=True)
+    frame, prior = frames[4], priors[3]
+    T_pred = state.T_world @ prior
+
+    def new_factor():
+        return VGICPFactor(voxelmap=state.vmap, source=frame, fixed_target_pose=torch.eye(4, device="cuda"),
+                           target_key=-1, source_key=0, min_voxel_points=params.min_voxel_points)
+
+    factor = new_factor()
+    graph = FactorGraph([factor], num_poses=1)
+    poses = T_pred[None]
+    st = LM.lm_start(graph, poses, p)
+    corr = graph.correspondences(poses)  # one entry a factor
+    A, b, err_lin, frozen_error = graph.linearize_frozen(poses, corr)
+    c = LM.candidates(A, b, st.lam, st.ladder, poses, p)
+    errs = LM.score(c, err_lin, frozen_error, p)
+    res = LM.lm_result(st)
+
+    def tail():
+        T_new = torch.where(torch.all(torch.isfinite(res.poses[0])), res.poses[0], T_pred)
+        return se3.se3_inverse(state.T_world) @ T_new
+
+    measured = {
+        "planar views (_source_planar, once a step)": lambda: new_factor()._source_planar,
+        "prediction T_world @ delta": lambda: state.T_world @ prior,
+        "lm_start (state, status arrays)": lambda: LM.lm_start(graph, poses, p),
+        "correspondences (lookup_fetch_planar, sym_rotate, sym_inv)": lambda: factor.correspondences(poses),
+        "linearize_corr (K3 + _unpack)": lambda: factor.linearize_corr(poses, corr[0]),
+        "linearize_frozen (all)": lambda: graph.linearize_frozen(poses, corr),
+        "_solve_damped (solve_small, K = 5)": lambda: LM._solve_damped(A, b, c.lams, p.diagonal_damping),
+        "retract / se3_exp (K = 5)": lambda: retract(poses, c.deltas),
+        "candidates (all)": lambda: LM.candidates(A, b, st.lam, st.ladder, poses, p),
+        "frozen_error, candidate 0": lambda: frozen_error(c.cands[0]),
+        "frozen_error, candidates 1..4": lambda: frozen_error(c.cands[1:]),
+        "score (all)": lambda: LM.score(c, err_lin, frozen_error, p),
+        "gate": lambda: LM.gate(c, err_lin, errs, p),
+        "lm_iteration (all)": lambda: LM.lm_iteration(graph, st, p),
+        "finite guard and T_delta": tail,
+    }
+    m = {k: _census_piece(torch, fn) for k, fn in measured.items()}
+
+    def less(total, *parts):
+        return tuple(m[total][i] - sum(m[q][i] for q in parts) for i in (0, 1))
+
+    rows = [
+        ("correspondences (lookup_fetch_planar, sym_rotate, sym_inv)", m["correspondences (lookup_fetch_planar, sym_rotate, sym_inv)"]),
+        ("linearize_corr (K3 + _unpack)", m["linearize_corr (K3 + _unpack)"]),
+        ("linearize_frozen's assembly (A, b, error)", less("linearize_frozen (all)", "linearize_corr (K3 + _unpack)")),
+        ("_solve_damped (solve_small, K = 5)", m["_solve_damped (solve_small, K = 5)"]),
+        ("retract / se3_exp (K = 5)", m["retract / se3_exp (K = 5)"]),
+        ("ladder and predicted decrease", less("candidates (all)", "_solve_damped (solve_small, K = 5)",
+                                              "retract / se3_exp (K = 5)")),
+        ("frozen_error, candidate 0", m["frozen_error, candidate 0"]),
+        ("frozen_error, candidates 1..4", m["frozen_error, candidates 1..4"]),
+        ("score's gate on candidate 0, inf mask, cat", less("score (all)", "frozen_error, candidate 0",
+                                                           "frozen_error, candidates 1..4")),
+        ("gate", m["gate"]),
+        ("finish: pick, lambda, convergence, done masking, status",
+         less("lm_iteration (all)", "correspondences (lookup_fetch_planar, sym_rotate, sym_inv)",
+              "linearize_frozen (all)", "candidates (all)", "score (all)", "gate")),
+    ]
+    log(f"[census] one LM iteration by source, at N = {frame.capacity} (kernels per call, device us per call):")
+    for name, (k, us) in rows:
+        log(f"[census]   {name}: {k:.1f} kernels, {us:.3f} us")
+    k_it, us_it = m["lm_iteration (all)"]
+    log(f"[census]   sum of the rows = lm_iteration: {sum(r[1][0] for r in rows):.1f} kernels "
+        f"({k_it:.1f}), {sum(r[1][1] for r in rows):.3f} us ({us_it:.3f})")
+    once = ["planar views (_source_planar, once a step)", "prediction T_world @ delta", "lm_start (state, status arrays)",
+            "finite guard and T_delta"]
+    for name in once:
+        log(f"[census]   once a step, {name}: {m[name][0]:.1f} kernels, {m[name][1]:.3f} us")
+    k_step = sum(m[n][0] for n in once) + p.max_iterations * k_it
+    us_step = sum(m[n][1] for n in once) + p.max_iterations * us_it
+    log(f"[census] the graph's registration: {k_step:.1f} kernels, {us_step:.3f} us of device time a step "
+        f"({p.max_iterations} iterations); the step's other work (static-buffer copies, clones, keyframe "
+        f"gate, insert) is the traced step less this")
 
 
 def phase_plain_vs_cuda(torch, frames, priors) -> None:
+    """The graph stepper against the eager odometry_step on the same frames,
+    bit for bit; then the CUDA path against the plain path (K3's plain
+    version in K3's place) within POSE_BOUND_M."""
     from gtsam_points_tpu_torch.ops import fused_linearize as FL
     from gtsam_points_tpu_torch.utils import se3
+
+    _, poses_graph, it_graph, _, _ = _run_odometry(torch, frames, priors, REAL_STEPS)
+    _, poses_eager, it_eager, eager_ms, _ = _run_odometry(torch, frames, priors, REAL_STEPS, eager=True)
+    same = torch.equal(poses_graph, poses_eager) and it_graph == it_eager
+    rot_d, trans_d = se3.pose_error(poses_eager, poses_graph)
+    log(f"[plain] {REAL_STEPS} steps graph stepper vs eager odometry_step: poses equal bit for bit {same}, "
+        f"max per-pose difference {float(trans_d.max()):.3e} m, {float(rot_d.max()):.3e} rad; LM iterations "
+        f"equal {it_graph == it_eager}; eager step ms median {statistics.median(eager_ms):.3f}")
+    if not same:
+        raise AssertionError("the graph stepper and the eager step disagree")
 
     _, poses_cuda, it_cuda, _, _ = _run_odometry(torch, frames, priors, PLAIN_STEPS)
     with mock.patch.object(FL, "linearize_fused", FL.linearize_fused_plain):
@@ -798,6 +961,16 @@ def k1_bound_ms(args) -> tuple:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def _named(name: str, key) -> bool:
+    """Whether a profiler's kernel name holds `key`, a string or a tuple of
+    strings any of which will do."""
+    return any(k in name for k in ((key,) if isinstance(key, str) else key))
+
+
+def _key_text(key) -> str:
+    return key if isinstance(key, str) else "' + '".join(key)
+
+
 def _kernel_label(name: str) -> str:
     """A profiler's kernel name without its return type, namespace and
     arguments: "unary_partial<true, false>"."""
@@ -819,7 +992,7 @@ def _device_us_by_kernel(torch, fn, key: str, calls: int = 100) -> dict:
     kernel_type = torch.autograd.DeviceType.CUDA
     split = collections.defaultdict(float)
     for e in prof.key_averages():
-        if e.device_type == kernel_type and key in e.key and e.self_device_time_total > 0:
+        if e.device_type == kernel_type and _named(e.key, key) and e.self_device_time_total > 0:
             split[_kernel_label(e.key)] += e.self_device_time_total / calls
     return dict(split)
 
@@ -1120,9 +1293,18 @@ def phase_k4(torch, source, vmap, T_reg) -> dict:
         pass
     for name, args in cases:
         lin = FL.linearize_vgicp_moments_cuda(*args)
+        again = FL.linearize_vgicp_moments_cuda(*args)
+        k1 = FL.linearize_vgicp_unary_cuda(*args)  # no weights: K4's partial kernel and grid
         ref = FL.linearize_vgicp_moments_plain(*args)
         torch.cuda.synchronize()
         _check_close(torch, f"[k4] {name}", lin, ref, K4_TOL)
+        differ = _bits_differ(torch, lin, again)
+        differ_k1 = _bits_differ(torch, _source_block(lin), _source_block(k1))
+        if differ or differ_k1:
+            raise AssertionError(f"[k4] {name}: {differ} values differ between two calls, {differ_k1} of the "
+                                 "source block from K1's")
+    log(f"[k4] every case: two calls equal bit for bit, and the source block (H_ss, b_s, error, count) "
+        f"equal to K1's without weights bit for bit ({len(cases)} cases)")
 
     args = k4_args(poses["twist"])
     lin = FL.linearize_vgicp_moments_cuda(*args)
@@ -1133,7 +1315,7 @@ def phase_k4(torch, source, vmap, T_reg) -> dict:
         "max_abs_err": abs_err,
         "ms": _median_ms(torch, lambda: FL.linearize_vgicp_moments_cuda(*args)),
         "plain_ms": _median_ms(torch, lambda: FL.linearize_vgicp_moments_plain(*args)),
-        "device_us": _device_us_per_call(torch, lambda: FL.linearize_vgicp_moments_cuda(*args), "moments_"),
+        "device_us": _device_us_per_call(torch, lambda: FL.linearize_vgicp_moments_cuda(*args), K4_KERNELS),
         "bound_ms": bound,
         "bound_by": bound_by,
     }
@@ -1209,7 +1391,7 @@ def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
             fused = C6 + (planar.sym_rotate(T[:3, :3], covs6) if covs6 is not None else eps_eye6)
             return planar.linearize_point_system(pts, pm, pm - mu, planar.sym_inv(fused), found, T[:3, :3])
 
-        return {"moments_fused": (moments_fused, "moments_"), "planar_fused": (planar_fused, "linearize_"),
+        return {"moments_fused": (moments_fused, K4_KERNELS), "planar_fused": (planar_fused, "linearize_"),
                 "unary_cuda": (unary_cuda, "unary_"), "unary_dense_cuda": (unary_dense_cuda, "unary_"),
                 "moments_plain": (moments_plain, None), "unary_plain": (unary_plain, None),
                 "planar_plain": (planar_plain, None)}
@@ -1233,7 +1415,7 @@ def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
             all_us = _device_us_per_call(torch, fn, "")
             own_us = None if key is None else _device_us_per_call(torch, fn, key)
             out[f"{name} {mode}"] = {"ms": ms, "device_us": all_us, "own_us": own_us}
-            own = "" if key is None else (f", its '{key}' kernels {own_us:.3f} us" if own_us is not None
+            own = "" if key is None else (f", its '{_key_text(key)}' kernels {own_us:.3f} us" if own_us is not None
                                           else ", its kernels not measured")
             device = "not measured" if all_us is None else f"{all_us:.3f} us"
             log(f"[race] {mode} {name}: {ms:.4f} ms median of {RACE_CALLS} calls (wrapper, CUDA events), "
@@ -1250,7 +1432,7 @@ def phase_race(torch, source, vmap, profile: Optional[str]) -> dict:
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3, 100
 
-        _trace(torch, "100 single-scan linearizes", run, "call", "moments_", f"{root}_scan{ext}")
+        _trace(torch, "100 single-scan linearizes", run, "call", K4_KERNELS, f"{root}_scan{ext}")
         dense = routes(covs_all)["unary_dense_cuda"][0]
 
         def run_dense():
@@ -1502,7 +1684,7 @@ def phase_batch_race(torch, source, vmap, profile: Optional[str]) -> dict:
             all_us = _device_us_per_call(torch, fn, "")
             own_us = None if key is None else _device_us_per_call(torch, fn, key)
             out["race"][f"{name} {mode}"] = {"ms": ms, "device_us": all_us, "own_us": own_us}
-            own = "" if key is None else (f", its '{key}' kernels {own_us:.3f} us" if own_us is not None
+            own = "" if key is None else (f", its '{_key_text(key)}' kernels {own_us:.3f} us" if own_us is not None
                                           else ", its kernels not measured")
             device = "not measured" if all_us is None else f"{all_us:.3f} us"
             log(f"[batch] {mode} {name}: {ms:.4f} ms median of {RACE_CALLS} calls (wrapper, CUDA events), "

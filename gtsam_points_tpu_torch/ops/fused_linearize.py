@@ -21,11 +21,14 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
   version: the port of the reference's off-TPU route, `jax.vmap` of
   `linearize_vgicp_unary_xla`.
 - K4, `linearize_vgicp_moments`: the full 12x12 VGICP system from raw voxel
-  moments (finalize, fused covariance in the target frame, 3x3 inverse,
-  Jacobians and reduction in one pass). On a CUDA tensor it launches
-  csrc/vgicp_moments.cu (or raises); on a CPU tensor it takes
-  `linearize_vgicp_moments_plain`, the port of `linearize_vgicp_moments_xla`.
-  `vgicp_scan_linearize` is the single-scan entry point: probe, then K4.
+  moments. On a CUDA tensor it launches csrc/vgicp_moments.cu (or raises),
+  which runs K1's partial kernel on K1's grid and expands K1's 29 sums to
+  the 12x12 system in its own final pass; on a CPU tensor it takes
+  `linearize_vgicp_moments_plain`, the port of `linearize_vgicp_moments_xla`
+  (fused covariance in the target frame, the 92 direct sums).
+  `linearize_vgicp_moments_source_plain` is the kernel's order of sums in
+  plain PyTorch, for the tests. `vgicp_scan_linearize` is the single-scan
+  entry point: probe, then K4.
 - K5, `linearize_vgicp_unary_dense`: K1's contract without weights. On a
   CUDA tensor it launches csrc/vgicp_unary_dense.cu (or raises), which runs
   K1's partial kernel with weights off on K1's grid, so it equals K1 called
@@ -40,10 +43,12 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
 
 `launches`, `unary_launches`, `unary_batch_launches`, `moments_launches` and
 `dense_launches` count the kernel launches of K3, K1, K2, K4 and K5, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels. A CUDA graph's replay
+does not pass through the wrappers: `captured_launches` takes back what a
+capture counted and returns it, and `replayed` adds it at each replay.
 
 Each grid is a function of N alone, so a shape always sums in the same
-order. K1's, K5's and K2's libraries export theirs; a wrapper checks the
+order. K1's, K5's, K4's and K2's libraries export theirs; a wrapper checks the
 library's grid against its own when it first loads the library.
 """
 
@@ -65,6 +70,25 @@ unary_launches = 0
 unary_batch_launches = 0
 moments_launches = 0
 dense_launches = 0
+
+
+
+def captured_launches(capture) -> int:
+    """Run `capture()`, a CUDA graph capture (which launches nothing), and
+    return the K3 launches it recorded; `launches` is left as it was."""
+    global launches
+    before = launches
+    capture()
+    recorded, launches = launches - before, before
+    return recorded
+
+
+def replayed(recorded: int) -> None:
+    """Count the K3 launches of one replay of a graph whose capture recorded
+    `recorded` (from `captured_launches`)."""
+    global launches
+    launches += recorded
+
 
 _THREADS = 128  # csrc/linearize_fused.cu kThreads
 _MAX_BLOCKS = 256  # its kMaxBlocks
@@ -160,12 +184,8 @@ def linearize_fused_plain(p_src, mu, W6, mask, delta) -> Linearized:
     return planar.linearize_point_system(p_src, pm, pm - mu, W6, mask, delta[:3, :3])
 
 
-def _expand_source_sums(sums: torch.Tensor, delta: torch.Tensor) -> Linearized:
-    """K3's final step in plain PyTorch: the 29 sums of the rotated-source
-    block (K1's layout, with q = R p in place of p and W in place of A) ->
-    the 12x12 system. With J~ = [-skew(q) | I], D = diag(R, R) and N =
-    [I 0; -skew(t) I]: J_s = J~ D and J_t = -J~ N, so H_ss = Dᵀ H~ D,
-    H_tt = Nᵀ H~ N, H_ts = -Nᵀ H~ D, b_s = -Dᵀ g~ and b_t = Nᵀ g~."""
+def _pose_blocks(delta: torch.Tensor):
+    """D = diag(R, R) and N = [I 0; -skew(t) I] of delta = [R t; 0 1], 6x6."""
     R, t = delta[:3, :3], delta[:3, 3]
     zero = t.new_zeros(())
     z3 = t.new_zeros((3, 3))
@@ -177,15 +197,53 @@ def _expand_source_sums(sums: torch.Tensor, delta: torch.Tensor) -> Linearized:
     ])
     D = torch.cat([torch.cat([R, z3], 1), torch.cat([z3, R], 1)])
     N = torch.cat([torch.cat([eye3, z3], 1), torch.cat([-skew_t, eye3], 1)])
+    return D, N
+
+
+def _target_rows(N: torch.Tensor, H: torch.Tensor, HD: torch.Tensor, g: torch.Tensor):
+    """The target rows of the 12x12 system from the rotated-source block H~ =
+    `H`, g~ = `g` and HD = H~ D: H_tt = Nᵀ H~ N, H_ts = -Nᵀ H~ D, b_t = Nᵀ g~."""
+    return N.T @ (H @ N), -(N.T @ HD), N.T @ g
+
+
+def _expand_source_sums(sums: torch.Tensor, delta: torch.Tensor) -> Linearized:
+    """K3's final step in plain PyTorch: the 29 sums of the rotated-source
+    block (K1's layout, with q = R p in place of p and W in place of A) ->
+    the 12x12 system. With J~ = [-skew(q) | I], D = diag(R, R) and N =
+    [I 0; -skew(t) I]: J_s = J~ D and J_t = -J~ N, so H_ss = Dᵀ H~ D,
+    H_tt = Nᵀ H~ N, H_ts = -Nᵀ H~ D, b_s = -Dᵀ g~ and b_t = Nᵀ g~."""
+    D, N = _pose_blocks(delta)
     src = _unpack_unary(sums)
     H, g = src.H_ss, -src.b_s  # H~, g~
     HD = H @ D
+    H_tt, H_ts, b_t = _target_rows(N, H, HD, g)
     return Linearized(
-        H_tt=N.T @ (H @ N),
+        H_tt=H_tt,
         H_ss=D.T @ HD,
-        H_ts=-(N.T @ HD),
-        b_t=N.T @ g,
+        H_ts=H_ts,
+        b_t=b_t,
         b_s=-(D.T @ g),
+        error=src.error,
+        num_inliers=src.num_inliers,
+    )
+
+
+def _expand_unary_sums(sums: torch.Tensor, delta: torch.Tensor) -> Linearized:
+    """K4's final step in plain PyTorch: K1's 29 sums (the source block in
+    the source frame, J_s = R [-skew(p) | I]) -> the 12x12 system. They are
+    the system's H_ss and b_s; with D and N as in `_expand_source_sums`, the
+    rotated-source block is H~ = D H_ss Dᵀ, g~ = D g_s (g_s = -b_s) and
+    H~ D = D H_ss, which `_target_rows` expands."""
+    D, N = _pose_blocks(delta)
+    src = _unpack_unary(sums)
+    DH = D @ src.H_ss
+    H_tt, H_ts, b_t = _target_rows(N, DH @ D.T, DH, D @ -src.b_s)
+    return Linearized(
+        H_tt=H_tt,
+        H_ss=src.H_ss,
+        H_ts=H_ts,
+        b_t=b_t,
+        b_s=src.b_s,
         error=src.error,
         num_inliers=src.num_inliers,
     )
@@ -353,12 +411,8 @@ def _voxel_stats(momT: torch.Tensor):
     return mu, momT[4:10] / safe - mu2
 
 
-def linearize_vgicp_unary_plain(
-    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None
-) -> Linearized:
-    """The same function in plain PyTorch, on any device: the reference's
-    XLA twin `linearize_vgicp_unary_xla`. `weights` ([N], non-negative)
-    scale each point's contribution, so `num_inliers` is the weighted count."""
+def _unary_sums_plain(p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None):
+    """K1's 29 sums [29] in plain PyTorch (see `linearize_vgicp_unary_plain`)."""
     okf = (found & (momT[0] >= min_voxel_points)).to(torch.float32)
     if weights is not None:
         okf = okf * weights
@@ -373,7 +427,16 @@ def linearize_vgicp_unary_plain(
     A = planar.sym_inv(F) * okf[None, :]
     d = delta[:3, 3, None] - mu
     rp = p_src + R.T @ d  # r' = Rᵀ r
-    return _unpack_unary(torch.sum(_unary_terms(p_src, A, rp, okf), dim=1))
+    return torch.sum(_unary_terms(p_src, A, rp, okf), dim=1)
+
+
+def linearize_vgicp_unary_plain(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None
+) -> Linearized:
+    """The same function in plain PyTorch, on any device: the reference's
+    XLA twin `linearize_vgicp_unary_xla`. `weights` ([N], non-negative)
+    scale each point's contribution, so `num_inliers` is the weighted count."""
+    return _unpack_unary(_unary_sums_plain(p_src, momT, found, delta, min_voxel_points, eps, src_covs6, weights))
 
 
 def _unary_terms(p_src, A, rp, count):
@@ -634,19 +697,8 @@ def linearize_vgicp_unary_batch(
 # K4: full 12x12 VGICP linearize from raw voxel moments
 # ---------------------------------------------------------------------------
 
-_MOMENTS_THREADS = 256  # csrc/vgicp_moments.cu kThreads
-_MOMENTS_MAX_BLOCKS = 1024
-
-
-def moments_num_blocks(n: int) -> int:
-    """K4's grid: one point a thread on blocks of 256, at most 1024 blocks.
-    It depends on n alone, so the summation order, and the result, is fixed
-    for a shape."""
-    return max(1, min(-(-n // _MOMENTS_THREADS), _MOMENTS_MAX_BLOCKS))
-
-
 def _moments_library():
-    """K4's launcher, csrc/vgicp_moments.cu."""
+    """K4's launcher, csrc/vgicp_moments.cu, on K1's grid."""
     lib = _build.load("vgicp_moments")
     fn = lib.gpt_vgicp_moments
     if fn.argtypes is None:  # first use in this process
@@ -655,7 +707,8 @@ def _moments_library():
             [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float]
             + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
-        if lib.gpt_vgicp_moments_out_len() != _OUT or lib.gpt_vgicp_moments_threads() != _MOMENTS_THREADS:
+        if (lib.gpt_vgicp_moments_out_len() != _OUT or lib.gpt_vgicp_moments_threads() != _UNARY_THREADS
+                or not _grid_matches(lib.gpt_vgicp_unary_num_blocks, unary_num_blocks)):
             raise RuntimeError("csrc/vgicp_moments.cu does not match its wrapper")
     return fn
 
@@ -670,16 +723,10 @@ def linearize_vgicp_moments_cuda(
     dev = p_src.device
     if dev.type != "cuda":
         raise ValueError(f"linearize_vgicp_moments_cuda needs CUDA tensors, got {dev}")
-    n = p_src.shape[-1]
-    _check("p_src", p_src, (3, n), torch.float32, dev)
-    _check("momT", momT, (10, n), torch.float32, dev)
-    _check("found", found, (n,), torch.bool, dev)
-    _check("delta", delta, (4, 4), torch.float32, dev)
-    if src_covs6 is not None:
-        _check("src_covs6", src_covs6, (6, n), torch.float32, dev)
+    n = _check_unary(p_src, momT, found, delta, src_covs6)
     fn = _moments_library()
-    blocks = moments_num_blocks(n)
-    partial = torch.empty((blocks, _OUT), dtype=torch.float32, device=dev)
+    blocks = unary_num_blocks(n)  # K1's grid
+    partial = torch.empty((blocks, _UNARY_OUT), dtype=torch.float32, device=dev)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -711,6 +758,18 @@ def linearize_vgicp_moments_plain(
     W6 = planar.sym_inv(fused)
     pm = planar.transform(delta, p_src)
     return planar.linearize_point_system(p_src, pm, pm - mu, W6, ok, delta[:3, :3])
+
+
+def linearize_vgicp_moments_source_plain(
+    p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None
+) -> Linearized:
+    """K4's own order of sums in plain PyTorch, on any device: K1's 29 plain
+    sums (the source block, in the source frame), then `_expand_unary_sums`.
+    The same function as `linearize_vgicp_moments_plain` but where the fused
+    covariance lies at the degeneracy threshold: that test runs on Rᵀ F R
+    here and on F there."""
+    sums = _unary_sums_plain(p_src, momT, found, delta, min_voxel_points, eps, src_covs6)
+    return _expand_unary_sums(sums, delta)
 
 
 def linearize_vgicp_moments(

@@ -5,7 +5,15 @@ with constant velocity, register the scan against the voxel map with a
 `VGICPFactor` in the LM, then insert the scan into the map when the keyframe
 gate opens — incrementally, or with the structural `insert_frame` when the
 incremental insert overflows. The reference's two `lax.cond`s (keyframe gate,
-overflow fallback) are Python branches on values read from the device.
+overflow fallback) are Python branches on values read from the device: they
+choose between inserts of different shapes.
+
+`make_odometry_stepper` on a CUDA device is the counterpart of the
+reference's `jax.jit(odometry_step)`: the registration (prediction, every LM
+iteration, the finite guard) is one CUDA graph, captured at the first step
+and replayed once a step with no host read; the gate and the insert stay
+eager. `odometry_step` is the eager step, the counterpart of the un-jitted
+reference function.
 
 The cluster path (`clusters=...`) is not ported yet and raises.
 """
@@ -19,6 +27,7 @@ import torch
 
 from gtsam_points_tpu_torch._device import DeviceLike, check_on, resolve_device
 from gtsam_points_tpu_torch.factors.vgicp import VGICPFactor
+from gtsam_points_tpu_torch.ops import fused_linearize
 from gtsam_points_tpu_torch.ops.voxelmap import (
     GaussianVoxelMap,
     empty_voxelmap,
@@ -26,7 +35,7 @@ from gtsam_points_tpu_torch.ops.voxelmap import (
     insert_frame_incremental,
 )
 from gtsam_points_tpu_torch.optim.graph import FactorGraph
-from gtsam_points_tpu_torch.optim.lm import LMParams, LMResult, optimize_lm
+from gtsam_points_tpu_torch.optim.lm import LMParams, LMResult, LMStatus, optimize_lm, optimize_lm_unrolled
 from gtsam_points_tpu_torch.types.frame import Frame, transform_frame
 from gtsam_points_tpu_torch.utils import se3
 
@@ -46,6 +55,7 @@ class OdometryParams:
     max_iterations: int = 10
     keyframe_trans: float = 0.5  # insert into the map when moved this far...
     keyframe_rot: float = 0.2  # ...or rotated this much since the last frame
+    full_insert_miss_fraction: float = 0.05  # as in the reference; read by neither package
     scan_cells_capacity: int = 8192  # bound on distinct voxels of one scan
     lm: Optional[LMParams] = None
 
@@ -66,44 +76,39 @@ def init_odometry(first_frame: Frame, params: OdometryParams, device: DeviceLike
     )
 
 
-def _register(state: OdometryState, frame: Frame, params: OdometryParams, T_pred_delta):
-    """-> (T_new, T_delta, LMResult): scan-to-map LM from the prediction."""
-    delta_pred = state.T_delta if T_pred_delta is None else T_pred_delta
-    T_pred = state.T_world @ delta_pred
+def _register(vmap: GaussianVoxelMap, T_world, delta_pred, frame: Frame, params: OdometryParams,
+              optimize=optimize_lm):
+    """-> (T_new, T_delta, LMResult): scan-to-map LM from T_world @ delta_pred.
+    It reads only `vmap.table` and `vmap.leaf` of the map."""
+    T_pred = T_world @ delta_pred
     factor = VGICPFactor(
-        voxelmap=state.vmap,
+        voxelmap=vmap,
         source=frame,
         fixed_target_pose=torch.eye(4, dtype=torch.float32, device=T_pred.device),
         target_key=-1,
         source_key=0,
         min_voxel_points=params.min_voxel_points,
     )
-    res: LMResult = optimize_lm(FactorGraph([factor], num_poses=1), T_pred[None], _lm_params(params))
+    res: LMResult = optimize(FactorGraph([factor], num_poses=1), T_pred[None], _lm_params(params))
     T_new = res.poses[0]
     T_new = torch.where(torch.all(torch.isfinite(T_new)), T_new, T_pred)
-    T_delta = se3.se3_inverse(state.T_world) @ T_new
+    T_delta = se3.se3_inverse(T_world) @ T_new
     return T_new, T_delta, res
+
+
+def _delta_pred(state: OdometryState, T_pred_delta):
+    return state.T_delta if T_pred_delta is None else T_pred_delta
 
 
 def odometry_register(state: OdometryState, frame: Frame, params: OdometryParams, T_pred_delta=None):
     """Registration half of the odometry step -> (T_new, T_delta, diagnostics)."""
-    T_new, T_delta, res = _register(state, frame, params, T_pred_delta)
+    T_new, T_delta, res = _register(state.vmap, state.T_world, _delta_pred(state, T_pred_delta), frame, params)
     return T_new, T_delta, {"error": res.error, "iterations": res.status.num_iterations}
 
 
-def odometry_step(
-    state: OdometryState,
-    frame: Frame,
-    params: OdometryParams,
-    T_pred_delta=None,
-    clusters=None,
-):
-    """VGICP scan-to-map odometry step -> (new_state, T_world, diagnostics).
-    `T_pred_delta` optionally overrides the constant-velocity prediction."""
-    if clusters is not None:
-        raise NotImplementedError("the cluster path of odometry_step is not ported yet")
-    T_new, T_delta, res = _register(state, frame, params, T_pred_delta)
-
+def _insert(state: OdometryState, frame: Frame, params: OdometryParams, T_new, T_delta, res: LMResult):
+    """The step's second half: the keyframe gate, then the insert ->
+    (new_state, T_world, diag). Two host reads: the gate and the overflow."""
     xi = se3.se3_log(T_delta)
     moved = (
         (torch.linalg.norm(xi[3:]) > params.keyframe_trans)
@@ -131,14 +136,126 @@ def odometry_step(
     return new_state, T_new, diag
 
 
-def make_odometry_stepper(params: OdometryParams, device: DeviceLike = None):
+def odometry_step(
+    state: OdometryState,
+    frame: Frame,
+    params: OdometryParams,
+    T_pred_delta=None,
+    clusters=None,
+):
+    """VGICP scan-to-map odometry step -> (new_state, T_world, diagnostics).
+    `T_pred_delta` optionally overrides the constant-velocity prediction.
+    Eager: the LM reads `done` from the device once an iteration."""
+    if clusters is not None:
+        raise NotImplementedError("the cluster path of odometry_step is not ported yet")
+    T_new, T_delta, res = _register(state.vmap, state.T_world, _delta_pred(state, T_pred_delta), frame, params)
+    return _insert(state, frame, params, T_new, T_delta, res)
+
+
+class _GraphedRegister:
+    """`_register` with all LM iterations (`optimize_lm_unrolled`) as one CUDA
+    graph. Its inputs are static buffers that each call fills on the current
+    stream: the map's probe table and leaf, the frame's points, mask and
+    covariances, T_world and the predicted motion. The graph holds the
+    factor's planar views too, so they are formed from each call's frame.
+
+    K3's wrapper counts its launches on the host, so a replay does not reach
+    it: `fused_linearize` takes back what the capture counted, and each call
+    counts those launches again as replayed."""
+
+    def __init__(self, params: OdometryParams, state: OdometryState, frame: Frame, delta_pred):
+        self.params = params
+        self.key = self.key_of(state, frame)
+        vmap = state.vmap
+        self.table = vmap.table.clone()
+        self.leaf = vmap.leaf.clone()
+        self.points = frame.points.clone()
+        self.mask = frame.mask.clone()
+        self.covs = None if frame.covs is None else frame.covs.clone()
+        self.T_world = state.T_world.clone()
+        self.delta_pred = delta_pred.clone()
+        dev = self.table.device
+        # the map's other fields are not read by the LM: empty, so a read fails
+        unread = torch.empty((0,), dtype=torch.int32, device=dev)
+        self.vmap = GaussianVoxelMap(
+            leaf=self.leaf, keys=unread, moments=unread.float(), last_seen=unread, epoch=unread,
+            num_voxels=unread, table=self.table,
+        )
+
+        # warm-up on a side stream, as torch.cuda.graph asks: it also makes
+        # the index tensors the wrappers build at first use, host-to-device
+        # copies that a capturing stream refuses
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+        self.graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(self.graph):
+                self.out = self._body()
+
+        self.k3_launches = fused_linearize.captured_launches(capture)
+
+    @staticmethod
+    def key_of(state: OdometryState, frame: Frame):
+        return (frame.capacity, tuple(state.vmap.table.shape), frame.covs is None, state.T_world.device)
+
+    def _body(self):
+        frame = Frame(points=self.points, mask=self.mask, covs=self.covs)
+        return _register(self.vmap, self.T_world, self.delta_pred, frame, self.params, optimize_lm_unrolled)
+
+    def __call__(self, state: OdometryState, frame: Frame, delta_pred):
+        """-> (T_new, T_delta, LMResult), cloned out of the graph's memory,
+        which the next replay overwrites."""
+        self.table.copy_(state.vmap.table)
+        self.leaf.copy_(state.vmap.leaf)
+        self.points.copy_(frame.points)
+        self.mask.copy_(frame.mask)
+        if self.covs is not None:
+            self.covs.copy_(frame.covs)
+        self.T_world.copy_(state.T_world)
+        self.delta_pred.copy_(delta_pred)
+        self.graph.replay()
+        fused_linearize.replayed(self.k3_launches)
+        T_new, T_delta, res = self.out
+        status = LMStatus(*(t.clone() for t in res.status))
+        return T_new.clone(), T_delta.clone(), LMResult(res.poses.clone(), res.error.clone(), status)
+
+
+def make_odometry_stepper(params: OdometryParams, donate: bool = True, *, device: DeviceLike = None):
     """The streaming step fn(state, frame, T_pred_delta=None) -> (new_state,
-    T_world, diag) on `device` (default `cuda`). The state passed in stays
-    valid: each step returns new map tensors."""
+    T_world, diag) on `device` (default `cuda`).
+
+    On a CUDA device the registration is one CUDA graph, captured at the
+    first step (again when the frame capacity, the map's table shape,
+    whether the frame has covariances or the device changes) and replayed
+    once a step: it runs all LM iterations, so its poses equal
+    `odometry_step`'s, and reads nothing from the device. A failed capture
+    or replay raises. On the CPU the step is `odometry_step`.
+
+    `donate` is the reference's signature; it does nothing here. The
+    reference donates the state's buffers to XLA; this stepper never
+    aliases the caller's state (the graph fills buffers of its own, and the
+    insert returns new map tensors), so the state passed in stays valid."""
+    del donate
     dev = resolve_device(device)
+    graphed: Optional[_GraphedRegister] = None
 
     def step(state: OdometryState, frame: Frame, T_pred_delta=None, clusters=None):
+        nonlocal graphed
         check_on(dev, state.T_world, frame.points)
-        return odometry_step(state, frame, params, T_pred_delta, clusters)
+        if dev.type != "cuda":
+            return odometry_step(state, frame, params, T_pred_delta, clusters)
+        if clusters is not None:
+            raise NotImplementedError("the cluster path of odometry_step is not ported yet")
+        delta_pred = _delta_pred(state, T_pred_delta)
+        if graphed is None or graphed.key != _GraphedRegister.key_of(state, frame):
+            graphed = None  # free the old graph's memory before capturing anew
+            graphed = _GraphedRegister(params, state, frame, delta_pred)
+        T_new, T_delta, res = graphed(state, frame, delta_pred)
+        return _insert(state, frame, params, T_new, T_delta, res)
 
     return step

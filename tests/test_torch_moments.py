@@ -9,7 +9,13 @@ tests/test_pallas_linearize.py runs it) and to the JAX XLA twin
 own kernel-vs-XLA tolerance for raw-moment covariances
 (tests/test_pallas_linearize.py:113-120); the inlier count is held exactly.
 The CUDA kernel runs only on a card (chip_smoke.py holds it to the plain
-version there); here the wrapper's refusal of CPU tensors is checked.
+version there); here the wrapper's refusal of CPU tensors is checked. The
+kernel sums K1's 29 source-frame terms and expands them to the 12x12 system;
+`linearize_vgicp_moments_source_plain`, that order of sums in plain
+PyTorch, is held to the plain version at 1e-4 x max|ref| (both finalize the
+raw moments alike) and to the JAX K4 at 2e-3, and shown at a voxel whose
+fused covariance lies at the degeneracy threshold, where the two frames'
+tests can disagree.
 
 The map build sums each voxel's rows in sorted order on every device
 (`voxelmap._run_sum`); on the CPU that is bit for bit what `index_add_`
@@ -98,9 +104,11 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("with_covs", [True, False], ids=["covs", "eps"])
-@pytest.mark.parametrize("case", list(CASES))
-def test_moments_matches_jax_kernel_and_xla(monkeypatch, scene, case, with_covs):
+_JAX_K4 = {}
+
+
+def _case_inputs(scene, case, with_covs):
+    """(jargs, targs, gated) of a CASES entry: the JAX package's probe rows."""
     at_identity, mvp, half_mask = CASES[case]
     pts, jmap, _, covs6 = scene
     delta = _delta(at_identity)
@@ -110,15 +118,30 @@ def test_moments_matches_jax_kernel_and_xla(monkeypatch, scene, case, with_covs)
     if half_mask:
         found = found & (np.random.RandomState(5).rand(N) > 0.5)
     gated = found & (momT[0] >= mvp)
-    assert gated.sum() > 0.2 * N and (~gated & found).any() == (mvp > 1.0)
     sc = covs6 if with_covs else None
-
     jargs = [jnp.asarray(a) for a in (p, momT, found, delta)] + [mvp, 1e-3, None if sc is None else jnp.asarray(sc)]
     targs = [torch.from_numpy(a) for a in (p, momT, found, delta)] + [mvp, 1e-3]
     targs += [None if sc is None else torch.from_numpy(sc)]
+    return jargs, targs, gated
+
+
+def _jax_k4(monkeypatch, case, with_covs, jargs):
+    """The JAX K4 on a CASES entry, computed once per module."""
+    key = (case, with_covs)
+    if key not in _JAX_K4:
+        _JAX_K4[key] = _jax_kernel(monkeypatch, jargs)
+    return _JAX_K4[key]
+
+
+@pytest.mark.parametrize("with_covs", [True, False], ids=["covs", "eps"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_moments_matches_jax_kernel_and_xla(monkeypatch, scene, case, with_covs):
+    jargs, targs, gated = _case_inputs(scene, case, with_covs)
+    mvp, found = CASES[case][1], jargs[2]
+    assert gated.sum() > 0.2 * N and (~gated & np.asarray(found)).any() == (mvp > 1.0)
 
     lin = FL.linearize_vgicp_moments(*targs)
-    assert_linearized_close(lin, _jax_kernel(monkeypatch, jargs))
+    assert_linearized_close(lin, _jax_k4(monkeypatch, case, with_covs, jargs))
     assert_linearized_close(lin, jxla(*jargs))
     assert int(lin.num_inliers) == gated.sum()
     H = torch.cat([torch.cat([lin.H_tt, lin.H_ts], 1), torch.cat([lin.H_ts.T, lin.H_ss], 1)])
@@ -126,6 +149,81 @@ def test_moments_matches_jax_kernel_and_xla(monkeypatch, scene, case, with_covs)
     # mirrors it (J_t = -J_s up to the pose), so the full H is semidefinite
     assert float(torch.linalg.eigvalsh(lin.H_ss.double())[0]) > 0
     assert float(torch.linalg.eigvalsh(H.double())[0]) > -1e-3 * float(H.abs().max())
+
+
+@pytest.mark.parametrize("with_covs", [True, False], ids=["covs", "eps"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_source_order_matches_plain_and_jax_kernel(monkeypatch, scene, case, with_covs):
+    """K4's order of sums (K1's 29 source-frame sums, then the expansion)
+    against the 92 direct sums of the plain version at 1e-4 and the JAX K4
+    at 2e-3 (raw-moment cancellation enters there); its source block is
+    K1's plain version bit for bit."""
+    jargs, targs, gated = _case_inputs(scene, case, with_covs)
+    src = FL.linearize_vgicp_moments_source_plain(*targs)
+    assert_linearized_close(src, FL.linearize_vgicp_moments_plain(*targs), tol=1e-4)
+    assert_linearized_close(src, _jax_k4(monkeypatch, case, with_covs, jargs))
+    k1 = FL.linearize_vgicp_unary_plain(*targs)
+    for f in ("H_ss", "b_s", "error", "num_inliers"):
+        assert torch.equal(getattr(src, f), getattr(k1, f)), f
+    assert int(src.num_inliers) == gated.sum()
+
+
+def test_source_order_at_the_degeneracy_threshold(monkeypatch, scene):
+    """A voxel whose fused covariance F = C_t (zero source covariance) is
+    diag(1, 1, d), with d where sym_inv's test on F (the plain version, the
+    JAX kernel: W = 0) and its test on Rᵀ F R (K4's order: A != 0) disagree.
+    The divergence is that voxel's contribution and nothing else: with it
+    masked out the two agree at 1e-4, and with it in, the source order's
+    result less the plain version's is the voxel's own contribution to
+    within 1e-4 x max|ref|. The point counts as an inlier in both."""
+    jargs, targs, _ = _case_inputs(scene, "pose", True)
+    p, momT, found, delta, mvp, eps, sc = targs
+    R = delta[:3, :3]
+
+    def f6(d):
+        return torch.tensor([[1.0], [0.0], [0.0], [1.0], [0.0], [d]], dtype=torch.float32)
+
+    def degenerate(C6):
+        return bool(torch.all(planar.sym_inv(C6) == 0))
+
+    ds = [d for d in np.logspace(-12, -6, 241).astype(np.float32)
+          if degenerate(f6(d)) != degenerate(planar.sym_rotate(R.T, f6(d)))]
+    assert ds, "no d at which the two frames' tests disagree"
+    d = float(ds[0])
+    momT, sc, found = momT.clone(), sc.clone(), found.clone()
+    momT[:, 0] = torch.tensor([10.0, 0.0, 0.0, 0.0, 10.0, 0.0, 0.0, 10.0, 0.0, 10.0 * d])  # mu = 0, C_t = diag(1, 1, d)
+    sc[:, 0] = 0.0
+    found[0] = True
+    assert torch.equal(_voxel_cov6(momT[:, :1]), f6(d))
+
+    def both(fnd):
+        args = (p, momT, fnd, delta, mvp, eps, sc)
+        return FL.linearize_vgicp_moments_source_plain(*args), FL.linearize_vgicp_moments_plain(*args)
+
+    src_all, plain_all = both(found)
+    others = found.clone()
+    others[0] = False
+    src_rest, plain_rest = both(others)
+    alone = torch.zeros_like(found)
+    alone[0] = True
+    src_one, plain_one = both(alone)
+    assert_linearized_close(src_rest, plain_rest, tol=1e-4)
+    assert int(src_all.num_inliers) == int(plain_all.num_inliers) == int(plain_rest.num_inliers) + 1
+    assert float(plain_one.H_ss.abs().max()) == 0.0 and float(src_one.H_ss.abs().max()) > 0.0
+    for f in Linearized._fields[:-1]:
+        a, b, one = getattr(src_all, f), getattr(plain_all, f), getattr(src_one, f)
+        scale = max(float(a.abs().max()), float(b.abs().max()))
+        np.testing.assert_allclose((a - b).numpy(), one.numpy(), rtol=0, atol=1e-4 * scale, err_msg=f)
+    # the JAX K4 takes the plain version's side
+    jargs = [jnp.asarray(t.numpy()) for t in (p, momT, found, delta)] + [mvp, eps, jnp.asarray(sc.numpy())]
+    assert_linearized_close(plain_all, _jax_kernel(monkeypatch, jargs))
+    print(f"d = {d:.3e}: the voxel moves H_ss by up to {float(src_one.H_ss.abs().max()):.3e} "
+          f"(the rest of the system: {float(plain_rest.H_ss.abs().max()):.3e})")
+
+
+def _voxel_cov6(momT):
+    """Each row's voxel covariance [6, N], as both versions finalize it."""
+    return FL._voxel_stats(momT)[1]
 
 
 @pytest.mark.parametrize("with_covs", [True, False], ids=["covs", "eps"])
@@ -227,3 +325,46 @@ def test_map_builds_equal_index_add_builds(monkeypatch):
         for x, y in zip(a, b):  # as bits: the probe table's empty keys are NaNs
             assert torch.equal(x.reshape(-1).view(torch.int32), y.reshape(-1).view(torch.int32))
     assert bool(new[3]) == bool(old[3])
+
+
+@pytest.mark.parametrize("offset", [0.0, 30.0], ids=["origin", "30m"])
+def test_source_order_as_close_to_float64_as_plain(offset):
+    """Near the optimum (5 mm of noise at the true pose) the gradient is a
+    small sum of large terms, so a float32 evaluation lands 1e-5 (map at
+    the origin) to 1e-3 (map 30 m out) x max|b| from float64. K4's order
+    (K1's source-frame sums, then the expansion) must be as close to its
+    own float64 evaluation as the plain version's 92 direct sums are to
+    theirs: within 2x in every field. The two orders agree only as far as
+    the float32 rotation is orthonormal (Rᵀ (C_t + R C_s Rᵀ) R = Rᵀ C_t R + C_s
+    and Rᵀ r = p + Rᵀ (t - mu) need RᵀR = I): near the optimum of a map far
+    out that parts them even in float64, not their rounding. The test prints
+    |RᵀR - I| and that float64 gap."""
+    rng = np.random.RandomState(11)
+    n = 20000
+    pts = (rng.rand(n, 3).astype(np.float32) - 0.5) * 8.0 + np.float32(offset)
+    tmap = VM.build_voxelmap(tmake(pts, device="cpu"), 1.0, n)
+    delta = torch.from_numpy(_delta(False))
+    noise = torch.from_numpy(rng.randn(n, 3).astype(np.float32) * 0.005)
+    p = ((torch.from_numpy(pts) - delta[:3, 3]) @ delta[:3, :3] + noise).T.contiguous()
+    g = rng.randn(n, 3, 3).astype(np.float32) * 0.05
+    covs = np.einsum("nij,nkj->nik", g, g) + np.eye(3, dtype=np.float32) * 0.01
+    sc = torch.from_numpy(np.stack([covs[:, i, j] for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))]))
+    momT, found = FL.probe_moments(tmap, p, torch.ones(n, dtype=torch.bool), delta)
+    args = (p, momT, found, delta, 4.0, 1e-3, sc)
+    args64 = (p.double(), momT.double(), found, delta.double(), 4.0, 1e-3, sc.double())
+
+    def errs(fn):
+        lin, ref = fn(*args), fn(*args64)
+        return {f: float((getattr(lin, f).double() - getattr(ref, f)).abs().max() / getattr(ref, f).abs().max())
+                for f in Linearized._fields[:-1]}
+
+    plain = errs(FL.linearize_vgicp_moments_plain)
+    source = errs(FL.linearize_vgicp_moments_source_plain)
+    print({f: f"plain {plain[f]:.2e} source order {source[f]:.2e}" for f in plain})
+    R = delta[:3, :3].double()
+    ref_b = FL.linearize_vgicp_moments_plain(*args64).b_s
+    gap = FL.linearize_vgicp_moments_source_plain(*args64).b_s - ref_b
+    print(f"|RᵀR - I| {float((R.T @ R - torch.eye(3, dtype=torch.float64)).abs().max()):.1e}; the two orders "
+          f"in float64 differ by {float(gap.abs().max() / ref_b.abs().max()):.1e} x max|b_s|")
+    for f in plain:
+        assert source[f] <= 2.0 * plain[f] + 1e-7, (f, source[f], plain[f])

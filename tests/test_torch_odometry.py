@@ -109,3 +109,29 @@ def test_odometry_register_and_cluster_path():
     np.testing.assert_allclose(T_delta.numpy(), T_new.numpy(), atol=1e-6)  # T_world was identity
     with pytest.raises(NotImplementedError):
         todo.odometry_step(state, frames[1], tp, clusters=object())
+
+
+def test_stepper_signature_and_params():
+    """The reference's signatures: `make_odometry_stepper(params, donate)`
+    takes `donate` second (it does nothing here) and `device` only by
+    keyword; `OdometryParams` has `full_insert_miss_fraction` with the
+    reference's default."""
+    assert todo.OdometryParams().full_insert_miss_fraction == jodo.OdometryParams().full_insert_miss_fraction == 0.05
+    world = ring_world(0, 24000)
+    T_true = ring_trajectory(3, lap=100)
+    frames = [tcovs(tmake(s, device="cpu")) for s in ring_scans(world, T_true, scan_n=SCAN_N, seed=1)]
+    tp = todo.OdometryParams(map_capacity=MAP_CAPACITY)
+
+    def run(step):
+        state = todo.init_odometry(frames[0], tp, device="cpu")
+        poses = []
+        for f in frames[1:]:
+            state, T, diag = step(state, f)
+            poses += [T, diag["error"], diag["iterations"]]
+        return poses
+
+    kept = run(todo.make_odometry_stepper(tp, False, device="cpu"))
+    for a, b in zip(kept, run(todo.make_odometry_stepper(tp, device="cpu"))):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        todo.make_odometry_stepper(tp, True, "cpu")

@@ -1,10 +1,9 @@
 """The grids of the unary kernels (K1, K5, K2) and of K4 in the PyTorch port.
 
 Each kernel's summation order, and so its result bit for bit, is fixed by
-its grid, which must be a function of N alone. K4 keeps the grid it always
-had (256-thread blocks, at most 1024), so its sums do not move. K1 runs one
-point a thread on 128-thread blocks, at most the 256 rows its final pass
-sums, and K5 runs K1's partial kernel on K1's grid. A wrapper holds its
+its grid, which must be a function of N alone. K1 runs one point a thread
+on 128-thread blocks, at most the 256 rows its final pass sums, and K5 and
+K4 run K1's partial kernel on K1's grid. A wrapper holds its
 library's exported grid to its own when it loads the library; here the
 libraries are stand-ins, since the kernels build only where there is a card.
 On the CPU K5's plain version is K1's called without weights, bit for bit.
@@ -22,12 +21,18 @@ from gtsam_points_tpu_torch.utils import se3
 torch.set_num_threads(1)
 
 
-def test_moments_grid_keeps_its_values():
-    """K4's grid: ceil(n / 256) blocks, at least 1, at most 1024."""
-    assert list(inspect.signature(FL.moments_num_blocks).parameters) == ["n"]
+def test_moments_grid_keeps_its_values(monkeypatch):
+    """K4's grid is K1's: ceil(n / 128) blocks, at least 1, at most 256. Its
+    first design's grid (256-thread blocks, at most 1024) is gone, and a
+    library that exports it is refused."""
+    assert not hasattr(FL, "moments_num_blocks")
     sizes = (1, 255, 256, 257, 3136, 25088, 262144, 10**6)
-    assert [FL.moments_num_blocks(n) for n in sizes] == [1, 1, 1, 2, 13, 98, 1024, 1024]
-    assert [FL.moments_num_blocks(n) for n in sizes] == [max(1, min(-(-n // 256), 1024)) for n in sizes]
+    assert [FL.unary_num_blocks(n) for n in sizes] == [1, 2, 2, 3, 25, 196, 256, 256]
+    loader, grid, values = LIBRARIES["K4"]
+    monkeypatch.setattr(FL._build, "load", lambda name: _fake_library(lambda n: max(1, min(-(-n // 256), 1024)),
+                                                                      **values))
+    with pytest.raises(RuntimeError, match="does not match its wrapper"):
+        loader()
 
 
 def test_unary_grid_depends_on_n_alone():
@@ -56,7 +61,7 @@ class _Fn:
 
 def _fake_library(grid, **values):
     lib = type("Lib", (), {})()
-    for name in ("gpt_vgicp_unary", "gpt_vgicp_unary_dense", "gpt_vgicp_unary_batch"):
+    for name in ("gpt_vgicp_unary", "gpt_vgicp_unary_dense", "gpt_vgicp_unary_batch", "gpt_vgicp_moments"):
         setattr(lib, name, _Fn())
     for name, value in values.items():
         setattr(lib, name, _Fn(value))
@@ -70,6 +75,8 @@ LIBRARIES = {
            dict(gpt_vgicp_unary_out_len=29, gpt_vgicp_unary_threads=128)),
     "K5": (FL._unary_dense_library, FL.unary_num_blocks,
            dict(gpt_vgicp_unary_dense_out_len=29, gpt_vgicp_unary_dense_threads=128)),
+    "K4": (FL._moments_library, FL.unary_num_blocks,
+           dict(gpt_vgicp_moments_out_len=92, gpt_vgicp_moments_threads=128)),
     "K2": (FL._unary_batch_library, FL.unary_batch_num_blocks,
            dict(gpt_vgicp_unary_batch_out_len=29, gpt_vgicp_unary_batch_threads=64,
                 gpt_vgicp_unary_batch_max_lanes=65535)),
@@ -79,15 +86,16 @@ LIBRARIES = {
 @pytest.mark.parametrize("kernel", sorted(LIBRARIES))
 def test_wrapper_holds_library_grid_to_its_own(monkeypatch, kernel):
     """A library whose exported grid agrees with the wrapper's loads; one
-    whose grid differs anywhere is refused when it loads. K5's wrapper holds
-    its library to K1's grid: the dense view's grid (a column of eight
-    points a thread) is refused."""
+    whose grid differs anywhere is refused when it loads. K5's and K4's
+    wrappers hold their libraries to K1's grid: the dense view's grid (a
+    column of eight points a thread) and K4's first grid are refused."""
     loader, grid, values = LIBRARIES[kernel]
     monkeypatch.setattr(FL._build, "load", lambda name: _fake_library(grid, **values))
     loader()
     wrong = {
         "K1": lambda n: max(1, min(-(-n // 256), 1024)),  # the first design's grid
         "K5": lambda n: max(1, -(-(-(-n // 8)) // 128)),  # the dense view's grid
+        "K4": lambda n: max(1, min(-(-n // 256), 1024)),  # K4's first grid
         "K2": lambda n: grid(n) + (n == 10**6),
     }[kernel]
     monkeypatch.setattr(FL._build, "load", lambda name: _fake_library(wrong, **values))
