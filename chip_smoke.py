@@ -13,7 +13,9 @@ Run from the root of a checkout:
                                               # and 100 batched ones; the tables
                                               # go to out.txt, out_eager.txt,
                                               # out_pyramid.txt, out_scan.txt,
-                                              # out_dense.txt, out_batch.txt
+                                              # out_dense.txt, out_batch.txt;
+                                              # and three cluster odometry
+                                              # steps, out_clusters.txt
     python3 chip_smoke.py --k3-witness TREE   # only K3 of the checkout at TREE
                                               # on phase 3's payloads against
                                               # float64 (an A/B of precision)
@@ -116,8 +118,37 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      K1_TWIST's pose and at the pose phase 8 registered; each K5 call twice,
      equal bit for bit, with no host read allowed; device us per launch pair
      beside K1's at N = 1, 8, 3136 and 25088;
-then one JSON line for all five kernels (K3, K1, K4, K2, K5) and, last, the
-device line.
+ 14. the cluster path's inputs, on a 26k-point ring world whose 25k-point
+     scans see nearly all of it (built once on the card, covariances as in
+     phase 4): scan 1, moved back by the true relative pose, clustered by
+     cluster_source at DEFAULT_CLUSTER_LEAF into DEFAULT_CLUSTER_CAPACITY
+     slots twice on the card (equal bit for bit) and once on the CPU (mask
+     and weights bit for bit, centroids and covariances within their
+     tolerances); the occupied and the dropped cells; every odometry frame
+     clustered at the map's leaf;
+ 15. K1 with weights and covariances on the cluster pyramid's shapes (N =
+     1408, 2816, 5632) at the identity and at the pose phase 16 registers,
+     held to its plain version at K1_TOL of each field's summand scale
+     (max|ref| for H_ss and the error), each case twice bit for bit with
+     no host read allowed;
+     the plain version with its weights or C_s dropped must fail that
+     check; device us per launch pair beside the bound; the plain weighted
+     route's device us at N = 5632, a witness;
+ 16. the cluster pyramid at the JAX package's headline shape: 64
+     registrations of the clusters against scan 0's DEFAULT_CLUSTER_STAGES
+     pyramid through register_clusters_pyramid, no host read inside a
+     registration, K1 exactly 7 launches each, each pose within 1e-3 m and
+     1e-3 rad of the JAX package's pose for the same inputs, or within
+     twice the distance by which the order of the sums alone moves that
+     init's JAX pose where that is larger; ms a registration;
+ 17. cluster odometry at the real size: 24 steps of the default
+     262144-voxel map with each frame's clusters, through the graph stepper
+     (K1 10 launches a replay) and the eager odometry_step, equal bit for
+     bit; the step median held to 100 ms, host reads a step, ATE held to the
+     JAX package's cluster ATE plus 10%; with --profile, three graph steps
+     traced (table in PATH_clusters);
+then one JSON line for all five kernels (K3, K1, K4, K2, K5; K1's launches
+on each of its paths) and, last, the device line.
 
 Every path is driven with the kernels' launch counts set to 0 just before it
 and read just after. Nothing of JAX or of the JAX package is imported.
@@ -236,6 +267,131 @@ K4_FLOPS_PER_POINT = {True: K1_FLOPS_PER_POINT, False: K1_FLOPS_PER_POINT - 3}
 # K4's kernels in a profiler's trace: K1's partial kernel and its own final
 K4_KERNELS = ("unary_partial", "moments_final")
 RACE_CALLS = 200
+# The cluster path (phases 14-17): a 26k-point ring world whose 25k-point
+# scans see nearly all of it, 3238 occupied leaf-1.0 cells a scan (the
+# 400k-point world's scans above lie within ~6 m and occupy only 264-267).
+CLUSTER_WORLD_N = 26_000
+CLUSTER_STEPS = 24
+# The cluster pyramid: scan 1 (moved back by the true relative pose) against
+# scan 0's DEFAULT_CLUSTER_STAGES pyramid (3 + 2 + 2 Gauss-Newton
+# iterations), from se3_exp(RandomState(3).uniform(-0.1, 0.1, 6)) inits.
+CLUSTER_INITS = 64
+CLUSTER_SEED = 3
+K1_LAUNCHES_PER_CLUSTER_REGISTRATION = 7
+# The JAX package's final poses for the same inputs (its XLA twin on the CPU,
+# top three rows row-major), printed by
+#   JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --cluster-inits 64
+# which Tier-1 also holds to these numbers for the first init.
+CLUSTER_PYRAMID_JAX_POSES = [
+    [0.9999999, 0.00032332278, -0.000016493823, -0.007322289, -0.0003233366, 0.9999998, -0.000006646091, 0.00010149594, 0.000016484399, 0.000006646265, 0.99999994, -0.0002634306],
+    [0.99913263, 0.041641958, -0.00011002633, -0.915659, -0.04164195, 0.99913263, 0.000053234202, 0.019306922, 0.0001121505, -0.000048618047, 1., -0.0010282509],
+    [0.99999994, -0.00030420633, -0.000016325634, 0.0065269545, 0.00030414367, 1., -0.000008555031, 0.00014173292, 0.000016344995, 0.000008517291, 1.0000001, -0.00028170034],
+    [0.99999946, 0.0010172608, -0.000022859813, -0.02258508, -0.0010172626, 0.9999994, -0.0000063960024, 0.00039070117, 0.000022854398, 0.0000064074934, 1., -0.0003284579],
+    [1.0000001, 0.00013525122, -0.00001803217, -0.0029821396, -0.00013527916, 0.99999994, -0.0000063624543, 0.00007066416, 0.000018023686, 0.0000063926527, 1., -0.0002513019],
+    [0.9997606, -0.021873062, -0.00004009525, 0.48235595, 0.021873076, 0.99976057, 0.000015481739, 0.0047872066, 0.00003977196, -0.000016352178, 1., -0.0021417297],
+    [0.99999994, 0.000043322852, -0.000017062815, -0.000992311, -0.000043313015, 0.9999999, -0.0000065824806, 0.000033786604, 0.000017071454, 0.000006568222, 1., -0.00025139787],
+    [1., 0.000043306358, -0.000017062224, -0.0009907313, -0.000043284992, 1., -0.00000658364, 0.000036122125, 0.000017075927, 0.000006593403, 1., -0.00025140957],
+    [0.9999929, 0.0037324612, -0.000031969364, -0.08260375, -0.0037324454, 0.999993, -0.000005352853, 0.001091025, 0.000031933592, 0.000005470335, 0.99999994, -0.00028891896],
+    [0.99999875, -0.0014717977, -0.000012954449, 0.032249585, 0.0014717891, 0.9999989, -0.000017491453, 0.00042096394, 0.000012978052, 0.000017478971, 1., -0.0004624318],
+    [1.0000001, 0.00004500042, -0.000017059552, -0.0010402066, -0.000044976823, 1.0000001, -0.0000065624345, 0.000044772594, 0.000017041071, 0.0000065845124, 1., -0.00025140683],
+    [0.9991626, -0.04091817, -0.000047163034, 0.90028644, 0.040918145, 0.99916244, 0.000023556226, 0.018727649, 0.000046170717, -0.000025472462, 1., -0.0014782466],
+    [0.9999999, 0.000043311502, -0.00001706257, -0.000992631, -0.000043332984, 0.9999999, -0.0000065826043, 0.00003350185, 0.000017089138, 0.0000065639406, 1., -0.0002513795],
+    [0.99961424, 0.027768718, -0.00011416846, -0.6116846, -0.027768672, 0.9996143, 0.00003163881, 0.008192448, 0.000115019735, -0.000028435948, 0.99999994, -0.0022339383],
+    [0.9999945, -0.0032624486, -0.000013715408, 0.071553245, 0.0032624565, 0.9999945, -0.000012468097, 0.000526012, 0.000013787981, 0.000012425237, 0.99999994, -0.0007066535],
+    [0.99964374, -0.026685214, -0.000026223332, 0.58886725, 0.02668521, 0.99964386, 0.000031373234, 0.008605031, 0.00002541886, -0.000032059655, 0.99999994, -0.0018418308],
+    [1., 0.000043305237, -0.000017062523, -0.0009908709, -0.000043293894, 1.0000001, -0.0000065844315, 0.000037477814, 0.000017052891, 0.000006590188, 1., -0.0002514237],
+    [0.9996149, -0.027747383, -0.000020999012, 0.6122603, 0.027747378, 0.9996151, 0.000015423753, 0.008578264, 0.00002053894, -0.000015999261, 0.99999994, -0.0018513432],
+    [1., 0.000043314125, -0.000017062692, -0.0009913835, -0.000043291526, 0.99999994, -0.000006582478, 0.000034811866, 0.000017057724, 0.0000065850772, 0.99999994, -0.00025136347],
+    [0.99999994, 0.00004330764, -0.000017063003, -0.0009922638, -0.00004331831, 0.99999994, -0.0000065826216, 0.000034657784, 0.00001706324, 0.0000065668564, 1., -0.00025138794],
+    [1., 0.000043319193, -0.000017062659, -0.0009912805, -0.00004328602, 1., -0.0000065835934, 0.000035693134, 0.0000170947, 0.000006559276, 1., -0.00025139193],
+    [0.9997951, 0.020236112, -0.00015818531, -0.44626868, -0.020236101, 0.99979526, 0.00006903798, 0.0040280237, 0.00015955213, -0.0000658305, 1., -0.0010421607],
+    [0.99991506, 0.013032126, -0.000086685424, -0.28791204, -0.013032112, 0.9999152, 0.000060028313, 0.0014808918, 0.000087448454, -0.00005892536, 1., -0.00038331712],
+    [0.9996128, -0.027816476, -0.000020205302, 0.6136225, 0.027816465, 0.999613, 0.0000144292735, 0.008476274, 0.000019778287, -0.000014992407, 1., -0.0018656567],
+    [0.99999607, -0.002856743, -0.000014472226, 0.06289789, 0.002856779, 0.99999595, -0.000014343979, 0.0003599355, 0.000014518074, 0.00001432706, 1., -0.00057484244],
+    [0.9995616, -0.029603172, -0.000035655517, 0.65309656, 0.029603176, 0.99956167, 0.00004578619, 0.009440793, 0.00003427194, -0.000046830275, 0.99999994, -0.001396609],
+    [0.99999964, 0.000733907, -0.00002251475, -0.016289845, -0.0007339338, 0.9999997, -0.0000059180975, 0.00027403212, 0.000022502149, 0.0000059374065, 1., -0.00031586218],
+    [1., 0.00009844338, -0.00001758516, -0.0022033025, -0.00009844905, 1., -0.000006443271, 0.000036470577, 0.000017605653, 0.000006450635, 1., -0.00024769138],
+    [0.9998704, -0.016090648, -0.000053352844, 0.35558358, 0.016090682, 0.9998706, 0.0000005746624, 0.0023787906, 0.000053346703, -0.0000014384132, 1., -0.0014868877],
+    [0.99956155, -0.02960324, -0.000035656376, 0.6530974, 0.029603243, 0.99956167, 0.0000457855, 0.009441822, 0.00003429029, -0.000046857916, 0.99999994, -0.0013966071],
+    [1.0000001, 0.00004326439, -0.000017062393, -0.000991744, -0.00004332581, 1., -0.000006583405, 0.00003581686, 0.000017100827, 0.0000066134967, 1.0000001, -0.00025146277],
+    [0.9999984, -0.0018052658, -0.000010865774, 0.03946349, 0.0018052696, 0.9999984, -0.000016680639, 0.0004618112, 0.000010888667, 0.000016676891, 1., -0.00043437677],
+    [0.99993587, -0.011332099, -0.000023237611, 0.25058496, 0.011332097, 0.99993587, -0.000026563754, 0.0003235275, 0.000023582752, 0.000026307553, 0.9999999, -0.0018725547],
+    [0.9994578, 0.032923672, -0.000107038584, -0.7244396, -0.032923687, 0.9994579, 0.00004544838, 0.011498887, 0.00010850972, -0.000041895997, 1., -0.0014443517],
+    [0.9999999, 0.00004330701, -0.000017062683, -0.000992233, -0.000043320015, 0.99999994, -0.0000065824806, 0.00003464317, 0.000017050672, 0.00000659685, 1., -0.00025136705],
+    [0.99999976, 0.00013530522, -0.000018032271, -0.0029834658, -0.00013530083, 0.99999994, -0.0000063625803, 0.000070989074, 0.000018030398, 0.000006384109, 1., -0.00025127397],
+    [0.9984054, 0.056450248, -0.00006135898, -1.242294, -0.056450218, 0.9984054, 0.000034611134, 0.03424493, 0.00006323641, -0.000031085823, 1., -0.0021770466],
+    [1.0000001, 0.00004326083, -0.000017062473, -0.0009909582, -0.00004330524, 1., -0.0000065838253, 0.00003586687, 0.000017049795, 0.000006567181, 1., -0.00025142147],
+    [0.99999994, 0.000043318305, -0.000017062373, -0.0009910773, -0.00004329954, 1., -0.000006583485, 0.000036118112, 0.000017062637, 0.0000065712015, 0.99999994, -0.00025137025],
+    [0.99916315, -0.040900905, -0.000050616498, 0.90007067, 0.0409009, 0.9991632, 0.000025475812, 0.018729798, 0.00004951843, -0.000027528287, 1., -0.0014748983],
+    [0.99898225, 0.04510632, -0.000075847536, -0.9919623, -0.045106336, 0.9989822, 0.000056724526, 0.02182825, 0.00007832828, -0.00005324878, 1., -0.0014758924],
+    [1., 0.000067987574, -0.000017375378, -0.0015284903, -0.00006803651, 1., -0.000005979866, 0.000029976101, 0.00001737126, 0.0000060183725, 0.9999999, -0.00023836861],
+    [1., 0.000043272943, -0.00001706244, -0.0009920899, -0.00004333339, 1.0000001, -0.000006584529, 0.000037417816, 0.000017052414, 0.000006580108, 1., -0.00025141714],
+    [1., 0.00004276745, -0.00001704838, -0.0009852581, -0.000042776817, 1., -0.0000065794634, 0.000034137818, 0.000017059037, 0.000006555712, 0.99999994, -0.00025132013],
+    [0.99999976, 0.000043308723, -0.000017062643, -0.0009927441, -0.000043338063, 1., -0.0000065833165, 0.000036238336, 0.000017069859, 0.00000658928, 0.9999998, -0.00025129705],
+    [0.9999999, 0.00004499403, -0.000017059783, -0.0010421867, -0.000045037967, 0.9999998, -0.000006558907, 0.00003915938, 0.000017072123, 0.0000065522704, 0.9999999, -0.00025128445],
+    [0.99999994, 0.00004332616, -0.000017062592, -0.0009908958, -0.000043296743, 1.0000001, -0.0000065843155, 0.00003750733, 0.000017064465, 0.0000065833988, 1., -0.0002514134],
+    [0.99939334, -0.0348273, -0.000047902773, 0.76679415, 0.034827307, 0.9993934, 0.000030151541, 0.012985179, 0.00004681631, -0.00003180958, 1.0000001, -0.0012239551],
+    [0.99950475, 0.031463273, -0.00009337062, -0.6926013, -0.031463254, 0.99950486, 0.000042543063, 0.011156959, 0.00009466387, -0.000039583705, 0.99999994, -0.0016634716],
+    [1.0000001, 0.00004328897, -0.000017062503, -0.0009919637, -0.00004330356, 0.99999994, -0.000006582562, 0.000034509685, 0.000017073076, 0.0000065850945, 1., -0.0002513977],
+    [0.99999994, 0.00004330968, -0.000017062353, -0.0009910079, -0.000043306623, 1., -0.000006583684, 0.000036366593, 0.000017066308, 0.0000065885483, 1., -0.00025138853],
+    [0.99999994, 0.000043325646, -0.000017063, -0.0009916337, -0.000043307497, 0.99999994, -0.0000065824515, 0.000034743356, 0.000017053999, 0.000006573402, 0.99999994, -0.0002513559],
+    [0.99963486, 0.027017817, -0.00012691897, -0.59536743, -0.027017836, 0.999635, 0.000039320337, 0.007893115, 0.00012792206, -0.000035902962, 0.99999994, -0.0019331456],
+    [0.9997112, -0.02403277, -0.000039093615, 0.53034514, 0.024032753, 0.99971116, 0.00002911758, 0.0065210694, 0.00003838718, -0.000030035146, 1., -0.0016049009],
+    [0.99999994, 0.000043301192, -0.000017063094, -0.0009924739, -0.00004332223, 1.0000001, -0.000006584573, 0.000037499503, 0.000017015813, 0.0000065732725, 1.0000001, -0.00025148035],
+    [0.99788654, -0.06497818, -0.000023176384, 1.4296435, 0.0649782, 0.9978869, 0.000100063335, 0.04642753, 0.000016674077, -0.000101368154, 1.0000001, -0.0010009032],
+    [1., 0.000043298613, -0.000017062212, -0.0009906958, -0.000043295942, 1.0000001, -0.0000065842205, 0.00003740318, 0.000017083632, 0.0000065949985, 1., -0.0002514143],
+    [0.99903435, 0.043933794, -0.00009455319, -0.9661888, -0.0439338, 0.99903435, 0.000037915728, 0.021166096, 0.000096135, -0.00003372592, 0.9999998, -0.0014632129],
+    [0.9998053, 0.019727763, -0.0001573879, -0.43533412, -0.0197278, 0.9998051, 0.00006316747, 0.0035386481, 0.00015856748, -0.000060038565, 1., -0.0012802408],
+    [0.99999994, 0.000043297598, -0.000017062728, -0.0009916357, -0.000043314732, 1., -0.0000065835097, 0.00003609756, 0.000017051732, 0.000006594255, 1., -0.00025140008],
+    [0.99998647, 0.0051806243, -0.000043771994, -0.11466384, -0.005180596, 0.9999866, -0.000000987442, 0.00070097577, 0.000043747415, 0.0000012060591, 1., -0.00033683475],
+    [0.99999994, 0.00004503631, -0.000017060012, -0.0010413988, -0.000044990447, 1., -0.0000065611707, 0.00004294767, 0.000017083872, 0.000006573756, 0.99999994, -0.0002513505],
+    [1., 0.000043304553, -0.000017062906, -0.0009915773, -0.00004331487, 0.9999999, -0.000006582246, 0.00003335495, 0.000017027187, 0.000006589727, 1., -0.00025138454],
+    [0.9999508, 0.009898736, -0.0000345234, -0.21847859, -0.009898749, 0.9999509, 0.000028451374, 0.0013856343, 0.000034770375, -0.000028094504, 1., 0.000054127653],
+]
+# Per-pose bounds against those poses. On this scene 19 of the 64 inits end
+# mid-slide along the ring corridor, where the cost is nearly flat, and the
+# order of the sums alone moves them: with both scans' points in 8 other
+# orders the JAX package's own poses move by up to 3.287888e-02 m and
+# 1.508815e-03 rad. CLUSTER_ORDER_SHIFT_M and _RAD are each init's largest
+# shift over those orders (`JAX_PLATFORMS=cpu python3
+# tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0
+# --cluster-inits 64 --cluster-orders 8`). Each pose is held to
+# CLUSTER_PYRAMID_BOUND_M and _RAD, or to CLUSTER_SHIFT_MARGIN times its own
+# init's shift where that is larger: 41 inits keep 1e-3 m, the other 23
+# get 1.09e-3 to 6.58e-2 m. The port on the CPU lands at most 0.51 of its
+# init's bound from JAX (init 2: 1.601e-3 m against a shift of 1.576e-3 m;
+# init 63: 1.992e-2 m against 2.062e-2 m; the same script's
+# --cluster-inits 64), the card's run so far at most 0.51 (init 2).
+CLUSTER_ORDER_SHIFT_M = [4.993e-04, 4.618e-04, 1.576e-03, 2.180e-03, 3.066e-05, 6.081e-04, 1.821e-05, 1.778e-05,
+                         9.678e-03, 1.506e-03, 2.133e-05, 5.167e-03, 1.563e-05, 4.725e-03, 2.178e-02, 2.766e-04,
+                         2.092e-05, 1.434e-03, 1.817e-05, 1.802e-05, 1.860e-05, 3.692e-04, 1.085e-03, 7.502e-04,
+                         3.168e-05, 1.318e-04, 8.211e-05, 6.940e-04, 1.773e-02, 1.297e-04, 1.805e-05, 3.210e-05,
+                         4.630e-04, 2.537e-04, 1.771e-05, 2.211e-05, 2.901e-02, 1.938e-05, 1.956e-05, 1.867e-03,
+                         1.098e-03, 1.689e-05, 2.082e-05, 2.006e-05, 1.686e-05, 1.412e-05, 2.074e-05, 4.423e-03,
+                         4.155e-04, 1.917e-05, 1.996e-05, 1.945e-05, 3.288e-02, 7.767e-04, 2.074e-05, 1.189e-04,
+                         2.088e-05, 2.533e-03, 1.374e-03, 1.935e-05, 6.676e-03, 1.834e-05, 1.693e-05, 2.062e-02]
+CLUSTER_ORDER_SHIFT_RAD = [2.063e-05, 1.917e-05, 7.350e-05, 9.989e-05, 1.031e-06, 2.730e-05, 2.290e-07, 2.633e-07,
+                           4.279e-04, 6.574e-05, 2.516e-07, 2.323e-04, 2.342e-07, 2.200e-04, 9.753e-04, 1.376e-05,
+                           2.615e-07, 7.230e-05, 2.485e-07, 2.380e-07, 2.419e-07, 1.601e-05, 4.888e-05, 3.338e-05,
+                           1.054e-06, 6.080e-06, 3.625e-06, 3.294e-05, 8.031e-04, 5.965e-06, 2.517e-07, 1.033e-06,
+                           1.912e-05, 1.070e-05, 2.428e-07, 7.746e-07, 1.314e-03, 2.544e-07, 2.326e-07, 8.854e-05,
+                           4.761e-05, 3.009e-07, 2.356e-07, 2.494e-07, 2.320e-07, 2.528e-07, 2.500e-07, 1.994e-04,
+                           1.818e-05, 2.468e-07, 2.503e-07, 2.415e-07, 1.509e-03, 3.648e-05, 2.362e-07, 4.684e-06,
+                           2.671e-07, 1.208e-04, 6.484e-05, 2.529e-07, 3.041e-04, 2.458e-07, 2.453e-07, 9.374e-04]
+CLUSTER_PYRAMID_BOUND_M = 1e-3
+CLUSTER_PYRAMID_BOUND_RAD = 1e-3
+CLUSTER_SHIFT_MARGIN = 2.0
+# The cluster odometry's ATE bound: the JAX package's own cluster ATE over
+# these 24 steps with the motion prior (the same script, --cluster-steps 24)
+# plus ATE_SLACK.
+CLUSTER_ATE_JAX_MEAN_M = 0.033184
+CLUSTER_ATE_JAX_MAX_M = 0.161544
+# The cluster-source build on the card against the CPU's, over max|ref| per
+# field (the raw-moment cancellation of the covariances, ROADMAP's
+# tolerances); keys, mask and weights bit for bit.
+CLUSTER_CENTROID_TOL = 1e-5
+CLUSTER_COV_TOL = 2e-3
+
 # K2 (the batched unary linearize) raced as the batched dispatch gate of
 # scripts/tpu_parity.py races it: B = 64 lanes over one 25088-slot source,
 # min_voxel_points 3 and eps 1e-3, lane b at se3_exp(K1_TWIST) with its
@@ -300,8 +456,9 @@ K3_CASES = [(1, False, "random"), (1000, False, "random"), (25_000, False, "rand
 
 
 def _float64(args):
-    """The floating-point tensors of `args` in float64, the rest as they are."""
-    return tuple(a.double() if a.is_floating_point() else a for a in args)
+    """The floating-point tensors of `args` in float64, the rest (integer and
+    bool tensors, Python numbers, None) as they are."""
+    return tuple(a.double() if getattr(a, "is_floating_point", lambda: False)() else a for a in args)
 
 
 def _k3_payload(torch, n: int, seed: int, half_mask: bool = False, kind: str = "random"):
@@ -564,14 +721,14 @@ def _zero_counts(FL) -> None:
     FL.dense_launches = 0
 
 
-def _ring_frames(torch, n_poses: int):
+def _ring_frames(torch, n_poses: int, world_n: int = REAL_WORLD_N):
     import numpy as np
 
     from gtsam_points_tpu_torch.ops.features import estimate_normals_covs_moments
     from gtsam_points_tpu_torch.types.frame import make_frame
     from gtsam_points_tpu_torch.utils.synthetic import ring_scans, ring_trajectory, ring_world
 
-    world = ring_world(0, REAL_WORLD_N)
+    world = ring_world(0, world_n)
     T_true = ring_trajectory(n_poses, lap=100)
     scans = ring_scans(world, T_true, scan_n=REAL_SCAN_N, seed=1)
     frames = [estimate_normals_covs_moments(make_frame(s, device="cuda")) for s in scans]
@@ -585,12 +742,16 @@ def _ring_frames(torch, n_poses: int):
     return T_true, scans, frames, priors
 
 
-def _run_odometry(torch, frames, priors, steps: int, eager: bool = False, start=None):
+def _run_odometry(torch, frames, priors, steps: int, eager: bool = False, start=None, clusters=None,
+                  reads: Optional[list] = None):
     """`steps` odometry steps; step i gets priors[i] as its motion prior.
     Through make_odometry_stepper (one CUDA graph replay a step), or with
     `eager` through odometry_step. `start` = (state, stepper) continues a
     run instead of starting one from frames[0]; frames[0] and priors[0] are
-    then the first step's."""
+    then the first step's. `clusters` (one a frame, aligned with `frames`)
+    takes the cluster path. With `reads`, each step's host reads (the
+    synchronizing calls sync debug mode "warn" reports inside the step) are
+    appended to it."""
     from gtsam_points_tpu_torch.pipelines.odometry import (
         OdometryParams,
         init_odometry,
@@ -598,22 +759,35 @@ def _run_odometry(torch, frames, priors, steps: int, eager: bool = False, start=
         odometry_step,
     )
 
+    import warnings
+
     params = OdometryParams()
+    clusters = [None] * len(frames) if clusters is None else clusters
     if start is None:
         state = init_odometry(frames[0], params, device="cuda")
         step = make_odometry_stepper(params, device="cuda")
-        frames = frames[1:]
+        frames, clusters = frames[1:], clusters[1:]
     else:
         state, step = start
     if eager:
-        def step(state, f, prior):  # noqa: F811
-            return odometry_step(state, f, params, prior)
+        def step(state, f, prior, cl):  # noqa: F811
+            return odometry_step(state, f, params, prior, cl)
     poses = [state.T_world]
     iters, step_ms, merges = [], [], 0
-    for f, prior in zip(frames[:steps], priors):
+    for f, prior, cl in zip(frames[:steps], priors, clusters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, T, diag = step(state, f, prior)
+        if reads is None:
+            state, T, diag = step(state, f, prior, cl)
+        else:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state, T, diag = step(state, f, prior, cl)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            reads.append(sum("called a synchronizing CUDA operation" in str(w.message) for w in caught))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         poses.append(T)
@@ -665,7 +839,7 @@ def phase_main_path(torch, profile: Optional[str], k3_payloads: dict):
 
     if profile:
         _profile_steps(torch, frames, priors, profile)
-        _census(torch, frames, priors, profile)
+        _census(torch, frames, priors)
 
     # K3 at the main path's own shape: the last frame against the final map
     factor = VGICPFactor(
@@ -730,22 +904,26 @@ def _trace(torch, label: str, run, unit: str, key: str, path: str, per_step: int
         f"{steps}; table in {path}")
 
 
-def _profile_steps(torch, frames, priors, path: str) -> None:
+def _profile_steps(torch, frames, priors, path: str, clusters=None) -> None:
     """Three odometry steps (2..4) traced (see _trace): through the graph
     stepper, captured at step 1 before the traces, and through the eager
-    odometry_step."""
+    odometry_step. With `clusters` (one a frame), the cluster path's graph
+    steps only."""
     from gtsam_points_tpu_torch.pipelines.odometry import OdometryParams, init_odometry, make_odometry_stepper
 
     params = OdometryParams()
     step = make_odometry_stepper(params, device="cuda")
-    state, _, _ = step(init_odometry(frames[0], params, device="cuda"), frames[1], priors[0])
+    cl = [None] * len(frames) if clusters is None else clusters
+    state, _, _ = step(init_odometry(frames[0], params, device="cuda"), frames[1], priors[0], cl[1])
     root, ext = os.path.splitext(path)
-    for label, eager, out in (("graph", False, path), ("eager", True, f"{root}_eager{ext}")):
+    kinds = [("graph", False, path)] + ([] if clusters else [("eager", True, f"{root}_eager{ext}")])
+    for label, eager, out in kinds:
         def run():
-            _, _, iters, step_ms, _ = _run_odometry(torch, frames[2:], priors[1:], 3, eager, (state, step))
+            _, _, iters, step_ms, _ = _run_odometry(torch, frames[2:], priors[1:], 3, eager, (state, step), cl[2:])
             return sum(step_ms), sum(iters)
 
-        _trace(torch, f"3 odometry steps, {label}", run, "LM iteration", "linearize_", out, per_step=3)
+        _trace(torch, f"3 {'cluster ' if clusters else ''}odometry steps, {label}", run, "LM iteration",
+               "unary_" if clusters else "linearize_", out, per_step=3)
 
 
 def _census_piece(torch, fn, reps: int = 20) -> tuple:
@@ -763,13 +941,14 @@ def _census_piece(torch, fn, reps: int = 20) -> tuple:
     return sum(e.count for e in rows) / reps, sum(e.self_device_time_total for e in rows) / reps
 
 
-def _census(torch, frames, priors, path: str) -> None:
+def _census(torch, frames, priors, clusters=None) -> None:
     """The census of one odometry step by source: each piece of the graph's
     registration run alone at the main path's shape (frame 4 against the map
     after three steps), its kernels and device us per call. Pieces that
     contain others are given, and what they add on their own is their total
-    less the parts. Then what a step adds up to by these counts."""
-    from gtsam_points_tpu_torch.factors.vgicp import VGICPFactor
+    less the parts. Then what a step adds up to by these counts. With
+    `clusters` (one a frame), the cluster path's step (K1 with weights)."""
+    from gtsam_points_tpu_torch.factors.vgicp import VGICPClustersFactor, VGICPFactor
     from gtsam_points_tpu_torch.optim import lm as LM
     from gtsam_points_tpu_torch.optim.graph import FactorGraph, retract
     from gtsam_points_tpu_torch.pipelines import odometry as O
@@ -777,13 +956,25 @@ def _census(torch, frames, priors, path: str) -> None:
 
     params = O.OdometryParams()
     p = O._lm_params(params)
-    state, _, _, _, _ = _run_odometry(torch, frames, priors, 3, eager=True)
+    state, _, _, _, _ = _run_odometry(torch, frames, priors, 3, eager=True, clusters=clusters)
     frame, prior = frames[4], priors[3]
     T_pred = state.T_world @ prior
+    common = dict(voxelmap=state.vmap, fixed_target_pose=torch.eye(4, device="cuda"), target_key=-1,
+                  source_key=0, min_voxel_points=params.min_voxel_points)
+    if clusters is None:
+        def new_factor():
+            return VGICPFactor(source=frame, **common)
 
-    def new_factor():
-        return VGICPFactor(voxelmap=state.vmap, source=frame, fixed_target_pose=torch.eye(4, device="cuda"),
-                           target_key=-1, source_key=0, min_voxel_points=params.min_voxel_points)
+        n = frame.capacity
+        views_key, views = "planar views (_source_planar, once a step)", lambda: new_factor()._source_planar
+        corr_key, lin_key = "correspondences (lookup_fetch_planar, sym_rotate, sym_inv)", "linearize_corr (K3 + _unpack)"
+    else:
+        def new_factor():
+            return VGICPClustersFactor(clusters=clusters[4], **common)
+
+        n = clusters[4].capacity
+        views_key, views = "regularized covariances (_cl_covs6, once a step)", lambda: new_factor()._cl_covs6
+        corr_key, lin_key = "correspondences (probe_moments)", "linearize_corr (K1 with weights + _unpack)"
 
     factor = new_factor()
     graph = FactorGraph([factor], num_poses=1)
@@ -800,11 +991,11 @@ def _census(torch, frames, priors, path: str) -> None:
         return se3.se3_inverse(state.T_world) @ T_new
 
     measured = {
-        "planar views (_source_planar, once a step)": lambda: new_factor()._source_planar,
+        views_key: views,
         "prediction T_world @ delta": lambda: state.T_world @ prior,
         "lm_start (state, status arrays)": lambda: LM.lm_start(graph, poses, p),
-        "correspondences (lookup_fetch_planar, sym_rotate, sym_inv)": lambda: factor.correspondences(poses),
-        "linearize_corr (K3 + _unpack)": lambda: factor.linearize_corr(poses, corr[0]),
+        corr_key: lambda: factor.correspondences(poses),
+        lin_key: lambda: factor.linearize_corr(poses, corr[0]),
         "linearize_frozen (all)": lambda: graph.linearize_frozen(poses, corr),
         "_solve_damped (solve_small, K = 5)": lambda: LM._solve_damped(A, b, c.lams, p.diagonal_damping),
         "retract / se3_exp (K = 5)": lambda: retract(poses, c.deltas),
@@ -822,9 +1013,9 @@ def _census(torch, frames, priors, path: str) -> None:
         return tuple(m[total][i] - sum(m[q][i] for q in parts) for i in (0, 1))
 
     rows = [
-        ("correspondences (lookup_fetch_planar, sym_rotate, sym_inv)", m["correspondences (lookup_fetch_planar, sym_rotate, sym_inv)"]),
-        ("linearize_corr (K3 + _unpack)", m["linearize_corr (K3 + _unpack)"]),
-        ("linearize_frozen's assembly (A, b, error)", less("linearize_frozen (all)", "linearize_corr (K3 + _unpack)")),
+        (corr_key, m[corr_key]),
+        (lin_key, m[lin_key]),
+        ("linearize_frozen's assembly (A, b, error)", less("linearize_frozen (all)", lin_key)),
         ("_solve_damped (solve_small, K = 5)", m["_solve_damped (solve_small, K = 5)"]),
         ("retract / se3_exp (K = 5)", m["retract / se3_exp (K = 5)"]),
         ("ladder and predicted decrease", less("candidates (all)", "_solve_damped (solve_small, K = 5)",
@@ -835,16 +1026,16 @@ def _census(torch, frames, priors, path: str) -> None:
                                                            "frozen_error, candidates 1..4")),
         ("gate", m["gate"]),
         ("finish: pick, lambda, convergence, done masking, status",
-         less("lm_iteration (all)", "correspondences (lookup_fetch_planar, sym_rotate, sym_inv)",
-              "linearize_frozen (all)", "candidates (all)", "score (all)", "gate")),
+         less("lm_iteration (all)", corr_key, "linearize_frozen (all)", "candidates (all)", "score (all)", "gate")),
     ]
-    log(f"[census] one LM iteration by source, at N = {frame.capacity} (kernels per call, device us per call):")
+    log(f"[census] one {'cluster ' if clusters else ''}LM iteration by source, at N = {n} (kernels per call, "
+        "device us per call):")
     for name, (k, us) in rows:
         log(f"[census]   {name}: {k:.1f} kernels, {us:.3f} us")
     k_it, us_it = m["lm_iteration (all)"]
     log(f"[census]   sum of the rows = lm_iteration: {sum(r[1][0] for r in rows):.1f} kernels "
         f"({k_it:.1f}), {sum(r[1][1] for r in rows):.3f} us ({us_it:.3f})")
-    once = ["planar views (_source_planar, once a step)", "prediction T_world @ delta", "lm_start (state, status arrays)",
+    once = [views_key, "prediction T_world @ delta", "lm_start (state, status arrays)",
             "finite guard and T_delta"]
     for name in once:
         log(f"[census]   once a step, {name}: {m[name][0]:.1f} kernels, {m[name][1]:.3f} us")
@@ -1815,12 +2006,332 @@ def phase_k5(torch, source, maps, T_reg) -> dict:
     return out
 
 
+def _cluster_scene(torch) -> dict:
+    """Phases 14-17's scene, built once on the card: CLUSTER_STEPS + 1 frames
+    of a CLUSTER_WORLD_N-point ring world with their covariances (as phase 4
+    makes them), the true motions, and the cluster pyramid's inputs: scan 1
+    moved back by the true relative pose, and scan 0's
+    DEFAULT_CLUSTER_STAGES pyramid."""
+    from gtsam_points_tpu_torch.registration import DEFAULT_CLUSTER_STAGES, build_pyramid
+    from gtsam_points_tpu_torch.types.frame import transform_frame
+
+    t0 = time.perf_counter()
+    T_true, _, frames, priors = _ring_frames(torch, CLUSTER_STEPS + 1, CLUSTER_WORLD_N)
+    source = transform_frame(priors[0], frames[1])
+    maps = build_pyramid(frames[0], DEFAULT_CLUSTER_STAGES)
+    torch.cuda.synchronize()
+    log(f"[clusters] {len(frames)} frames of {frames[0].capacity} slots ({REAL_SCAN_N} points) from a "
+        f"{CLUSTER_WORLD_N}-point ring world and scan 0's DEFAULT_CLUSTER_STAGES pyramid "
+        f"({', '.join(str(int(vm.num_voxels)) for vm in maps)} voxels), built in {time.perf_counter() - t0:.3f} s")
+    return {"T_true": T_true, "frames": frames, "priors": priors, "source": source, "maps": maps}
+
+
+def _rel_err(torch, a, b) -> float:
+    """max |a - b| over max |b|, in float64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def _fields_differ(torch, a, b) -> int:
+    """Values of two SourceClusters that differ in any bit."""
+    return sum(int((x.view(torch.int32) != y.view(torch.int32)).sum()) if x.is_floating_point()
+               else int((x != y).sum()) for x, y in zip(a, b))
+
+
+def phase_cluster_inputs(torch, scene) -> dict:
+    """Phase 14: the cluster pyramid's source clustered twice on the card
+    (every field equal bit for bit: the cells are summed in a fixed order)
+    and once on the CPU from the same frame (mask and weights bit for bit,
+    centroids and covariances within their tolerances); the occupied and the
+    dropped cells; then every odometry frame clustered at the map's leaf,
+    as phase 17 takes them."""
+    from gtsam_points_tpu_torch.pipelines.odometry import OdometryParams
+    from gtsam_points_tpu_torch.registration import DEFAULT_CLUSTER_CAPACITY, DEFAULT_CLUSTER_LEAF, cluster_source
+
+    source = scene["source"]
+    card = cluster_source(source, DEFAULT_CLUSTER_LEAF, DEFAULT_CLUSTER_CAPACITY)
+    again = cluster_source(source, DEFAULT_CLUSTER_LEAF, DEFAULT_CLUSTER_CAPACITY)
+    on_cpu = source.replace(**{f.name: getattr(source, f.name).cpu() for f in dataclasses.fields(source)
+                               if getattr(source, f.name) is not None})
+    cpu = cluster_source(on_cpu, DEFAULT_CLUSTER_LEAF, DEFAULT_CLUSTER_CAPACITY, device="cpu")
+    torch.cuda.synchronize()
+    differ = _fields_differ(torch, card, again)
+    log(f"[clusters] two card builds of the pyramid's source clusters: {differ} of "
+        f"{sum(t.numel() for t in card)} values differ (must be 0)")
+    if differ:
+        raise AssertionError("two card builds of the same clusters differ")
+    same = torch.equal(card.mask.cpu(), cpu.mask) and torch.equal(card.weight.cpu(), cpu.weight)
+    cen, cov = _rel_err(torch, card.pts_p, cpu.pts_p), _rel_err(torch, card.covs6, cpu.covs6)
+    log(f"[clusters] card vs CPU: mask and weights equal bit for bit {same}; centroids {cen:.3e} "
+        f"(tol {CLUSTER_CENTROID_TOL}), covariances {cov:.3e} (tol {CLUSTER_COV_TOL}) of max|CPU|")
+    if not same or cen > CLUSTER_CENTROID_TOL or cov > CLUSTER_COV_TOL:
+        raise AssertionError("the card's clusters differ from the CPU's")
+    occupied = int(card.mask.sum())
+    cells = int(cluster_source(source, DEFAULT_CLUSTER_LEAF, source.capacity).mask.sum())
+    points = int(source.mask.sum())
+    log(f"[clusters] {occupied} of {DEFAULT_CLUSTER_CAPACITY} cluster slots occupied by {points} points "
+        f"({points / max(occupied, 1):.2f} a cluster, {int((card.weight >= 5).sum())} clusters of 5 or more); "
+        f"{max(cells - DEFAULT_CLUSTER_CAPACITY, 0)} cells dropped")
+
+    leaf = OdometryParams().voxel_resolution
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_frame = [cluster_source(f, leaf, DEFAULT_CLUSTER_CAPACITY) for f in scene["frames"]]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(per_frame)
+    counts = [int(c.mask.sum()) for c in per_frame]
+    log(f"[clusters] {len(per_frame)} odometry frames clustered at leaf {leaf}: {min(counts)}-{max(counts)} "
+        f"clusters a frame, {ms:.3f} ms a frame (host clock, synchronized)")
+    return {"source": card, "frames": per_frame}
+
+
+def _summand_scale(args):
+    """Each field's summand scale for K1's inputs `args`: K1's 29 per-point
+    terms in float64, summed in absolute value and unpacked as K1 unpacks
+    its sums (a Linearized). The rounding of a float32 sum is bounded
+    relative to the sum of its terms' magnitudes, and max|sum| is not when
+    the terms cancel (b_s near the optimum)."""
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+
+    p, momT, found, delta, min_points, eps, covs6, weights = _float64(args)
+    A, rp, okf = FL._unary_weight_residual(p, momT, found, delta, min_points, eps, covs6, weights)
+    return FL._unpack_unary(FL._unary_terms(p, A, rp, okf).abs().sum(1))
+
+
+def _cluster_fields(lin, ref, ref64, scale) -> tuple:
+    """Phase 15's check of one K1 result `lin` against the float32 plain
+    version `ref` -> (texts, failed fields). A field fails when the two part
+    by more than K1_TOL of the field's summand scale (`_summand_scale`,
+    largest entry). For H_ss and the error that scale is max|ref|, as in
+    phase 7; b_s near the optimum is a small residue of large terms. Printed
+    beside it: the gap over max|ref|, and each version's gap to float64
+    `ref64` over the scale."""
+    texts, bad = [], []
+    for f in ("H_ss", "b_s", "error"):
+        k, p, e = getattr(lin, f).double(), getattr(ref, f).double(), getattr(ref64, f)
+        sc = float(getattr(scale, f).abs().max()) + 1e-30
+        rel = float((k - p).abs().max()) / sc
+        texts.append(f"{f} {rel:.3e} (of max|ref| {float((k - p).abs().max()) / (float(p.abs().max()) + 1e-30):.3e}; "
+                     f"max|ref| {float(p.abs().max()) / sc:.3e} of the scale; against float64: K1 "
+                     f"{float((k - e).abs().max()) / sc:.3e}, plain {float((p - e).abs().max()) / sc:.3e})")
+        if rel > K1_TOL:
+            bad.append(f)
+    return texts, bad
+
+
+def phase_k1_clusters(torch, scene, clusters) -> dict:
+    """Phase 15: K1 with weights and covariances on the cluster pyramid's
+    shapes (N = 1408, 2816, 5632: strides 4, 2 and 1 of the clusters against
+    the leaf-4, leaf-1 and leaf-1 maps), at the identity and at the pose
+    phase 16 registers from its first init; each case held to the plain
+    version by `_cluster_fields` and called twice with no host read
+    allowed, the two calls equal bit for bit; at the registered pose the
+    plain version with its weights or its C_s dropped must fail that check.
+    Device us per launch pair beside the bound, and the plain weighted
+    route's device us at N = 5632 (a witness)."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.ops import planar
+    from gtsam_points_tpu_torch.registration import DEFAULT_CLUSTER_STAGES, register_clusters_pyramid
+    from gtsam_points_tpu_torch.utils import se3
+
+    maps = scene["maps"]
+    xi0 = np.random.RandomState(CLUSTER_SEED).uniform(-0.1, 0.1, (1, 6)).astype(np.float32)
+    T_reg = register_clusters_pyramid(maps, clusters, se3.se3_exp(torch.from_numpy(xi0).cuda())[0])
+    reg = clusters._replace(covs6=planar.sym_add_eye(clusters.covs6, 1e-3))  # as the pyramid weights them
+    poses = {"identity": torch.eye(4, device="cuda"), "registered": T_reg.contiguous()}
+    cases = []
+    for vm, st in zip(maps, DEFAULT_CLUSTER_STAGES):
+        cl = reg.strided(st.stride)
+        for name, pose in poses.items():
+            momT, found = FL.probe_moments(vm, cl.pts_p, cl.mask, pose)
+            cases.append((f"N={cl.capacity} stride {st.stride} leaf {st.leaf} {name}",
+                          (cl.pts_p, momT, found, pose, 1.0, 1e-3, cl.covs6, cl.weight)))
+    torch.cuda.synchronize()
+    for name, args in cases:
+        torch.cuda.set_sync_debug_mode("error")  # a host read inside raises
+        try:
+            lin = FL.linearize_vgicp_unary_cuda(*args)
+            again = FL.linearize_vgicp_unary_cuda(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref = FL.linearize_vgicp_unary_plain(*args)
+        ref64 = FL.linearize_vgicp_unary_plain(*_float64(args))
+        torch.cuda.synchronize()
+        abs_err, _ = _max_err(torch, lin, ref)
+        differ = _bits_differ(torch, lin, again)
+        scale = _summand_scale(args)
+        texts, bad = _cluster_fields(lin, ref, ref64, scale)
+        log(f"[k1-clusters] {name}: weighted count {int(ref.num_inliers)} max_abs_err={abs_err:.3e}; "
+            f"err over the summand scale " + ", ".join(texts) + f" (tol {K1_TOL}); two calls differ in {differ} "
+            "values (must be 0)")
+        if bad or int(lin.num_inliers) != int(ref.num_inliers):
+            raise AssertionError(f"K1 with weights disagrees with its plain version ({name}: {bad})")
+        if differ:
+            raise AssertionError(f"two K1 calls on the same input differ ({name})")
+        if name.endswith("registered"):
+            # controls: the plain version with a fault planted must fail the
+            # same check, so the summand scale cannot pass a faulty kernel
+            for fault, planted in (("weights dropped", args[:7] + (None,)),
+                                   ("C_s dropped", args[:6] + (None, args[7]))):
+                _, caught = _cluster_fields(FL.linearize_vgicp_unary_plain(*planted), ref, ref64, scale)
+                log(f"[k1-clusters] {name}: control, the plain version with {fault}: fails on {caught or 'nothing'}")
+                if not caught:
+                    raise AssertionError(f"the phase's check passes the plain version with {fault} ({name})")
+
+    out = {"T_reg": T_reg}
+    for name, args in cases:
+        if not name.endswith("registered"):
+            continue
+        bound, bound_by = k1_bound_ms(args)
+        split = _device_us_by_kernel(torch, lambda: FL.linearize_vgicp_unary_cuda(*args), "unary_")
+        line = (f"[k1-clusters] {name} ({FL.unary_num_blocks(args[0].shape[1])} blocks): device "
+                f"{_pair_text(split)}, bound {bound * 1e3:.4f} us ({bound_by})")
+        if args[0].shape[1] == clusters.capacity:
+            plain = _device_us_per_call(torch, lambda: FL.linearize_vgicp_unary_plain(*args), "")
+            line += (f"; the plain weighted route {'not measured' if plain is None else f'{plain:.3f} us'} "
+                     "of device time a call (all its kernels; a witness, it chooses nothing)")
+        log(line)
+        out[args[0].shape[1]] = {"device_us": sum(split.values()) if split else None, "bound_ms": bound}
+    return out
+
+
+def phase_cluster_pyramid(torch, scene, clusters) -> dict:
+    """Phase 16: the cluster pyramid at the JAX package's headline shape:
+    CLUSTER_INITS registrations of the source clusters against the
+    DEFAULT_CLUSTER_STAGES pyramid through register_clusters_pyramid, each
+    with no host read allowed inside it; K1 exactly 7 launches a
+    registration; each pose within CLUSTER_PYRAMID_BOUND_M and _RAD of the
+    JAX package's pose for the same inputs, or within CLUSTER_SHIFT_MARGIN
+    times the shift by which the order of the sums moves that init's JAX
+    pose (CLUSTER_ORDER_SHIFT_M and _RAD) where that is larger."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.registration import register_clusters_pyramid
+    from gtsam_points_tpu_torch.utils import se3
+
+    maps = scene["maps"]
+    xis = np.random.RandomState(CLUSTER_SEED).uniform(-0.1, 0.1, (CLUSTER_INITS, 6)).astype(np.float32)
+    T0s = se3.se3_exp(torch.from_numpy(xis).cuda())
+    torch.cuda.synchronize()
+    _zero_counts(FL)
+    poses, reg_ms = [], []
+    for T0 in T0s:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")  # a host read inside raises
+        try:
+            poses.append(register_clusters_pyramid(maps, clusters, T0))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        reg_ms.append((time.perf_counter() - t0) * 1e3)
+    k1_launches, k3_launches = FL.unary_launches, FL.launches
+    poses = torch.stack(poses)
+
+    if not bool(torch.all(torch.isfinite(poses))):
+        raise AssertionError("a cluster pyramid pose is not finite")
+    log(f"[cluster-pyramid] {CLUSTER_INITS} registrations of {int(clusters.mask.sum())} clusters "
+        f"({clusters.capacity} slots) against {len(maps)} maps: K1 launches {k1_launches} "
+        f"({k1_launches / CLUSTER_INITS:.3f} per registration), K3 launches {k3_launches}, host reads inside a "
+        "registration: 0 (sync debug mode 'error')")
+    log(f"[cluster-pyramid] ms per registration median {statistics.median(reg_ms):.3f}, min {min(reg_ms):.3f}, "
+        f"max {max(reg_ms):.3f} (first {reg_ms[0]:.3f}); all {CLUSTER_INITS}: {sum(reg_ms):.3f} ms")
+    if k1_launches != K1_LAUNCHES_PER_CLUSTER_REGISTRATION * CLUSTER_INITS or k3_launches:
+        raise AssertionError(f"K1 launched {k1_launches} times in {CLUSTER_INITS} cluster registrations")
+    top = torch.tensor(CLUSTER_PYRAMID_JAX_POSES, dtype=torch.float32).reshape(-1, 3, 4)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0]).expand(len(top), 1, 4)
+    rot, trans = se3.pose_error(torch.cat([top, bottom], 1).cuda(), poses)
+    truth_rot, truth_trans = se3.pose_error(torch.eye(4, device="cuda"), poses)
+    bound_m = torch.clamp(CLUSTER_SHIFT_MARGIN * torch.tensor(CLUSTER_ORDER_SHIFT_M, device="cuda"),
+                          min=CLUSTER_PYRAMID_BOUND_M)
+    bound_rad = torch.clamp(CLUSTER_SHIFT_MARGIN * torch.tensor(CLUSTER_ORDER_SHIFT_RAD, device="cuda"),
+                            min=CLUSTER_PYRAMID_BOUND_RAD)
+    share_m, share_rad = trans / bound_m, rot / bound_rad
+    own = int((bound_m == CLUSTER_PYRAMID_BOUND_M).sum())
+    log(f"[cluster-pyramid] against the JAX package's poses: max per-pose gap {float(trans.max()):.3e} m "
+        f"{float(rot.max()):.3e} rad; {int((trans <= CLUSTER_PYRAMID_BOUND_M).sum())} of {CLUSTER_INITS} within "
+        f"{CLUSTER_PYRAMID_BOUND_M} m; the largest gap over its init's bound {float(share_m.max()):.3f} (init "
+        f"{int(share_m.argmax())}) in m, {float(share_rad.max()):.3f} (init {int(share_rad.argmax())}) in rad "
+        f"(bounds: {CLUSTER_PYRAMID_BOUND_M} m, {CLUSTER_PYRAMID_BOUND_RAD} rad, or {CLUSTER_SHIFT_MARGIN} x the "
+        f"init's order shift; {own} inits at {CLUSTER_PYRAMID_BOUND_M} m); the five largest gaps (init, m, bound "
+        "m): " + ", ".join(f"({int(i)}, {float(trans[i]):.3e}, {float(bound_m[i]):.3e})"
+                            for i in torch.argsort(-trans)[:5])
+        + f"; error against the truth max {float(truth_trans.max()):.6f} m {float(truth_rot.max()):.6f} rad")
+    if not (bool(torch.all(share_m <= 1)) and bool(torch.all(share_rad <= 1))):
+        raise AssertionError("cluster pyramid: a pose is further from the JAX package's than its init's bound")
+    return {"launches": k1_launches, "median_ms": statistics.median(reg_ms), "poses": poses}
+
+
+def phase_cluster_odometry(torch, scene, clusters, profile: Optional[str]) -> dict:
+    """Phase 17: cluster odometry at the real size: CLUSTER_STEPS steps with
+    `OdometryParams()` and each frame's clusters, each step with the true
+    motion as its prior, through make_odometry_stepper (one CUDA graph
+    replay a step, K1 10 launches a replay) and through the eager
+    odometry_step, equal bit for bit; the step median held to
+    STEP_LIMIT_MS; host reads a step; ATE held to the JAX package's cluster
+    ATE on the same run times ATE_SLACK. With `profile`, three graph steps
+    traced as phase 4 traces them."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.pipelines.odometry import OdometryParams
+    from gtsam_points_tpu_torch.utils import se3
+
+    frames, priors, T_true = scene["frames"], scene["priors"], scene["T_true"]
+    iterations = OdometryParams().max_iterations
+    reads = []
+    _zero_counts(FL)
+    state, poses, iters, step_ms, merges = _run_odometry(torch, frames, priors, CLUSTER_STEPS, clusters=clusters,
+                                                         reads=reads)
+    k1_launches, k3_launches = FL.unary_launches, FL.launches
+    if not bool(torch.all(torch.isfinite(poses))):
+        raise AssertionError("a cluster odometry pose is not finite")
+    log(f"[cluster-odometry] {CLUSTER_STEPS} steps, map capacity {state.vmap.capacity}, "
+        f"{int(state.vmap.num_voxels)} voxels, {merges} structural merges; LM iterations per step {iters} "
+        f"(total {sum(iters)}); K1 launches {k1_launches} ({iterations} in the capture's warm-up, then "
+        f"{(k1_launches - iterations) / CLUSTER_STEPS:.3f} a replay), K3 launches {k3_launches}; host reads a "
+        f"step {reads[1:]} (the first step, with the capture: {reads[0]})")
+    if k1_launches != iterations * (CLUSTER_STEPS + 1) or k3_launches:
+        raise AssertionError(f"K1 launched {k1_launches} times in {CLUSTER_STEPS} cluster steps")
+    log(f"[cluster-odometry] graph stepper: step ms over {len(step_ms)} steps median "
+        f"{statistics.median(step_ms):.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f} (first, with the "
+        f"capture: {step_ms[0]:.3f}); limit {STEP_LIMIT_MS} ms, one 10 Hz LiDAR period")
+    if statistics.median(step_ms) > STEP_LIMIT_MS:
+        raise AssertionError(f"the median cluster step takes more than {STEP_LIMIT_MS} ms")
+
+    _, poses_eager, it_eager, eager_ms, _ = _run_odometry(torch, frames, priors, CLUSTER_STEPS, eager=True,
+                                                          clusters=clusters)
+    same = torch.equal(poses, poses_eager) and iters == it_eager
+    log(f"[cluster-odometry] {CLUSTER_STEPS} steps graph stepper vs eager odometry_step: poses and iterations "
+        f"equal bit for bit {same}; eager step ms median {statistics.median(eager_ms):.3f}")
+    if not same:
+        raise AssertionError("the cluster graph stepper and the eager step disagree")
+
+    T0 = torch.from_numpy(T_true[0]).cuda()
+    T_ref = torch.from_numpy(np.stack(T_true[: len(poses)])).cuda()
+    rot_e, trans_e = se3.pose_error(T_ref, T0 @ poses)
+    ate_mean, ate_max = float(trans_e.mean()), float(trans_e.max())
+    log(f"[cluster-odometry] ATE translation mean {ate_mean:.6f} m max {ate_max:.6f} m; rotation max "
+        f"{float(rot_e.max()):.6f} rad (bound: the JAX package's mean {CLUSTER_ATE_JAX_MEAN_M} m, max "
+        f"{CLUSTER_ATE_JAX_MAX_M} m, times {ATE_SLACK})")
+    if not (ate_mean <= CLUSTER_ATE_JAX_MEAN_M * ATE_SLACK and ate_max <= CLUSTER_ATE_JAX_MAX_M * ATE_SLACK):
+        raise AssertionError("the cluster trajectory is further from the truth than the JAX package's")
+    if profile:
+        root, ext = os.path.splitext(profile)
+        _profile_steps(torch, frames, priors, f"{root}_clusters{ext}", clusters)
+        _census(torch, frames, priors, clusters)
+    return {"launches": k1_launches, "median_ms": statistics.median(step_ms)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
-                        help="profile three steps, the pyramid, the single-scan linearize on K4 and on K5 "
-                             "and the batched linearize, tables to PATH, PATH_pyramid, PATH_scan, PATH_dense "
-                             "and PATH_batch")
+                        help="profile three steps, the pyramid, the single-scan linearize on K4 and on K5, "
+                             "the batched linearize and three cluster steps, tables to PATH, PATH_pyramid, "
+                             "PATH_scan, PATH_dense, PATH_batch and PATH_clusters")
     parser.add_argument("--k3-witness", metavar="TREE",
                         help="only read the K3 of the checkout at TREE on phase 3's payloads against float64, "
                              "then exit")
@@ -1869,6 +2380,11 @@ def main() -> int:
     phase_k2(torch, source, maps[-1], pyramid["poses"][0])
     batch = phase_batch_race(torch, source, maps[-1], args.profile)
     k5 = phase_k5(torch, source, maps, pyramid["poses"][0])
+    scene = _cluster_scene(torch)
+    clusters = phase_cluster_inputs(torch, scene)
+    phase_k1_clusters(torch, scene, clusters["source"])
+    cluster_pyramid = phase_cluster_pyramid(torch, scene, clusters["source"])
+    cluster_odometry = phase_cluster_odometry(torch, scene, clusters["frames"], args.profile)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -1889,6 +2405,8 @@ def main() -> int:
         "source": "gtsam_points_tpu_torch/csrc/vgicp_unary.cu",
         "replaces": "gtsam_points_tpu/ops/pallas_linearize.py:500",
         "launches": pyramid["launches"],
+        "launches_by_path": {"pyramid": pyramid["launches"], "cluster_pyramid": cluster_pyramid["launches"],
+                             "cluster_odometry": cluster_odometry["launches"]},
         "max_abs_err": k1["main"]["max_abs_err"],
         "ms": k1["main"]["ms"],
         "plain_ms": k1["main"]["plain_ms"],

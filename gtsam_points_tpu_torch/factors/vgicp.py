@@ -1,10 +1,12 @@
 """VGICP: voxelized GICP of a source frame against a Gaussian voxel map.
 
-Port of `VGICPFactor` and `make_vgicp_factor` in
-gtsam_points_tpu/factors/vgicp.py. Correspondence is one voxel probe per
-source point; the cost is the GICP distribution-to-distribution distance
-against the voxel's mean and covariance. The linearization on a frozen
-correspondence set runs the fused K3 kernel (ops/fused_linearize.py).
+Port of `VGICPFactor`, `make_vgicp_factor`, `VGICPClustersFactor` and
+`make_vgicp_clusters_factor` in gtsam_points_tpu/factors/vgicp.py.
+Correspondence is one voxel probe per source point (or cluster); the cost
+is the GICP distribution-to-distribution distance against the voxel's mean
+and covariance. The point factor's linearization on a frozen correspondence
+set runs the fused K3 kernel, the cluster factor's runs K1 with weights
+(ops/fused_linearize.py).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from gtsam_points_tpu_torch.factors.base import MatchingFactorMixin, factor_poses
 from gtsam_points_tpu_torch.ops import fused_linearize, planar
 from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, build_voxelmap, lookup_fetch_planar
+from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
 from gtsam_points_tpu_torch.utils import se3
 
@@ -56,9 +59,7 @@ class VGICPFactor(MatchingFactorMixin):
         if covs6 is not None:
             fused = C6 + planar.sym_rotate(delta[:3, :3], covs6)
         else:
-            e = torch.full_like(C6[0, :1], 1e-3)  # 1e-3 I in planar form
-            z = torch.zeros_like(e)
-            fused = C6 + torch.stack([e, z, z, e, z, e])
+            fused = planar.sym_add_eye(C6, 1e-3)
         return found, mu, planar.sym_inv(fused)
 
     def linearize_corr(self, poses: torch.Tensor, corr):
@@ -96,6 +97,95 @@ def make_vgicp_factor(
     return VGICPFactor(
         voxelmap=vmap,
         source=source,
+        fixed_target_pose=fixed_target_pose,
+        target_key=target_key,
+        source_key=source_key,
+        min_voxel_points=min_voxel_points,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class VGICPClustersFactor(MatchingFactorMixin):
+    """VGICP whose source is a clustered scan (registration/cluster.py
+    `SourceClusters`): correspondence is one probe of the weighted cluster
+    records instead of the scan's points, and the linearize and the error
+    are the weighted unary path. Only the source block is formed: the target
+    pose is meant to be fixed (target_key = -1 with fixed_target_pose, the
+    scan-to-map odometry shape). With target_key >= 0 the target blocks are
+    zero, as in the reference. `eps` regularizes the cluster covariances as
+    `register_clusters_pyramid` does."""
+
+    voxelmap: GaussianVoxelMap
+    clusters: SourceClusters
+    fixed_target_pose: torch.Tensor
+    target_key: int
+    source_key: int
+    min_voxel_points: float
+    eps: float = 1e-3
+
+    @functools.cached_property
+    def _cl_covs6(self) -> torch.Tensor:
+        return planar.sym_add_eye(self.clusters.covs6, self.eps)
+
+    def _delta(self, poses: torch.Tensor) -> torch.Tensor:
+        T_t, T_s = factor_poses(self, poses)
+        return se3.se3_inverse(T_t) @ T_s
+
+    def correspondences(self, poses: torch.Tensor):
+        """Probe at `poses` -> (momT [10, C], found [C])."""
+        cl = self.clusters
+        return fused_linearize.probe_moments(self.voxelmap, cl.pts_p, cl.mask, self._delta(poses))
+
+    def _error(self, corr, delta: torch.Tensor) -> torch.Tensor:
+        momT, found = corr
+        cl = self.clusters
+        return fused_linearize.vgicp_unary_error(
+            cl.pts_p, momT, found, delta, self.min_voxel_points, src_covs6=self._cl_covs6, weights=cl.weight
+        )[0]
+
+    def linearize_corr(self, poses: torch.Tensor, corr):
+        """Linearization on a frozen correspondence set (K1 with weights),
+        and the error function that scores candidate poses on the same set."""
+        momT, found = corr
+        cl = self.clusters
+        lin = fused_linearize.linearize_vgicp_unary(
+            cl.pts_p, momT, found, self._delta(poses), self.min_voxel_points,
+            src_covs6=self._cl_covs6, weights=cl.weight,
+        )
+
+        def err_fn(new_poses):
+            return self._error(corr, self._delta(new_poses))
+
+        return lin, err_fn
+
+    def linearize(self, poses: torch.Tensor):
+        return self.linearize_corr(poses, self.correspondences(poses))[0]
+
+    def linearize_with_error_fn(self, poses: torch.Tensor):
+        return self.linearize_corr(poses, self.correspondences(poses))
+
+    def error(self, poses: torch.Tensor) -> torch.Tensor:
+        return self._error(self.correspondences(poses), self._delta(poses))
+
+
+def make_vgicp_clusters_factor(
+    target_key: int,
+    source_key: int,
+    target,
+    clusters: SourceClusters,
+    voxel_resolution: float = 1.0,
+    min_voxel_points: float = 5.0,
+    fixed_target_pose: Optional[torch.Tensor] = None,
+) -> VGICPClustersFactor:
+    """`target` may be a Frame (its voxel map is built here) or a
+    GaussianVoxelMap; `clusters` from registration.cluster.cluster_source
+    (sensor frame)."""
+    vmap = target if isinstance(target, GaussianVoxelMap) else build_voxelmap(target, voxel_resolution)
+    if fixed_target_pose is None:
+        fixed_target_pose = torch.eye(4, dtype=torch.float32, device=clusters.pts_p.device)
+    return VGICPClustersFactor(
+        voxelmap=vmap,
+        clusters=clusters,
         fixed_target_pose=fixed_target_pose,
         target_key=target_key,
         source_key=source_key,

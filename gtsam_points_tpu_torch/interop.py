@@ -1,9 +1,10 @@
 """Carry state across from the JAX package as numpy arrays.
 
-The system has no weights: its state is the voxel map and the frames. These
-functions take the numpy arrays of a JAX `GaussianVoxelMap` (its seven
-fields) and of a `Frame`, and build the port's state from them bit for bit,
-so both packages can start from the same map.
+The system has no weights: its state is the voxel map, the frames and a
+scan's source clusters. These functions take the numpy arrays of a JAX
+`GaussianVoxelMap` (its seven fields), of a `Frame` and of a
+`SourceClusters` (its four fields), and build the port's state from them
+bit for bit, so both packages can start from the same map.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from gtsam_points_tpu_torch._device import DeviceLike, resolve_device
 from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap
+from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
 
 _VMAP_DTYPES = {
@@ -27,6 +29,7 @@ _VMAP_DTYPES = {
     "table": np.float32,
 }
 _FRAME_FIELDS = ("points", "mask", "normals", "covs", "intensities", "times")
+_CLUSTER_DTYPES = {"pts_p": np.float32, "covs6": np.float32, "weight": np.float32, "mask": bool}
 
 
 def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
@@ -55,3 +58,14 @@ def frame_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = None
 def voxelmap_to_numpy(vmap: GaussianVoxelMap) -> dict:
     """The map's fields as numpy arrays (for comparison with the JAX map)."""
     return {k: getattr(vmap, k).cpu().numpy() for k in _VMAP_DTYPES}
+
+
+def clusters_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = None) -> SourceClusters:
+    """`arrays`: pts_p, covs6, weight, mask (a JAX `SourceClusters`' fields)."""
+    dev = resolve_device(device)
+    return SourceClusters(**{k: _tensor(arrays[k], dt, dev) for k, dt in _CLUSTER_DTYPES.items()})
+
+
+def clusters_to_numpy(clusters: SourceClusters) -> dict:
+    """The clusters' fields as numpy arrays (for comparison with the JAX ones)."""
+    return {k: getattr(clusters, k).cpu().numpy() for k in _CLUSTER_DTYPES}

@@ -36,6 +36,9 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
   `linearize_vgicp_unary_dense_plain`, which is K1's plain version (called
   without weights), as the reference falls back to the same XLA twin off
   the TPU.
+- `vgicp_unary_error`: the unary path's error on frozen moment rows, for a
+  batch of candidate poses; plain PyTorch on every device, as the
+  reference's `vgicp_unary_error_xla` runs outside any kernel.
 - `probe_moments`: transform + hash probe -> the raw moment rows K1 and K4 read.
   The reference selects the matched record with two 0/1 matmuls, a TPU
   device whose sums hold exactly one nonzero term; here the record picked by
@@ -45,7 +48,8 @@ Port of gtsam_points_tpu/ops/pallas_linearize.py, in part:
 `dense_launches` count the kernel launches of K3, K1, K2, K4 and K5, so a run
 can show that its main path went through the kernels. A CUDA graph's replay
 does not pass through the wrappers: `captured_launches` takes back what a
-capture counted and returns it, and `replayed` adds it at each replay.
+capture counted of K3 and K1 and returns it, and `replayed` adds it at each
+replay.
 
 Each grid is a function of N alone, so a shape always sums in the same
 order. K1's, K5's, K4's and K2's libraries export theirs; a wrapper checks the
@@ -55,7 +59,7 @@ library's grid against its own when it first loads the library.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -73,21 +77,24 @@ dense_launches = 0
 
 
 
-def captured_launches(capture) -> int:
+def captured_launches(capture) -> Tuple[int, int]:
     """Run `capture()`, a CUDA graph capture (which launches nothing), and
-    return the K3 launches it recorded; `launches` is left as it was."""
-    global launches
-    before = launches
+    return the (K3, K1) launches it recorded; `launches` and
+    `unary_launches` are left as they were."""
+    global launches, unary_launches
+    before = launches, unary_launches
     capture()
-    recorded, launches = launches - before, before
+    recorded = launches - before[0], unary_launches - before[1]
+    launches, unary_launches = before
     return recorded
 
 
-def replayed(recorded: int) -> None:
-    """Count the K3 launches of one replay of a graph whose capture recorded
-    `recorded` (from `captured_launches`)."""
-    global launches
-    launches += recorded
+def replayed(recorded: Tuple[int, int]) -> None:
+    """Count the K3 and K1 launches of one replay of a graph whose capture
+    recorded `recorded` (from `captured_launches`)."""
+    global launches, unary_launches
+    launches += recorded[0]
+    unary_launches += recorded[1]
 
 
 _THREADS = 128  # csrc/linearize_fused.cu kThreads
@@ -411,23 +418,39 @@ def _voxel_stats(momT: torch.Tensor):
     return mu, momT[4:10] / safe - mu2
 
 
-def _unary_sums_plain(p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None):
-    """K1's 29 sums [29] in plain PyTorch (see `linearize_vgicp_unary_plain`)."""
+def _unary_weight_residual(p_src, momT, found, delta, min_voxel_points, eps, src_covs6, weights):
+    """The unary path's per-point weight and residual in the source frame,
+    for delta [..., 4, 4] -> (A [..., 6, N], r' [..., 3, N], okf [N]):
+    A = okf F⁻¹ with F = Rᵀ C_t R + C_src (or + eps I), r' = p + Rᵀ (t - mu),
+    okf the gate (found, enough voxel points) times the weights."""
     okf = (found & (momT[0] >= min_voxel_points)).to(torch.float32)
     if weights is not None:
         okf = okf * weights
     mu, ct6 = _voxel_stats(momT)
-    R = delta[:3, :3]
-    # fused covariance in the source frame: F = Rᵀ C_t R + C_src (or + eps I)
-    F = planar.sym_rotate(R.T, ct6)
-    if src_covs6 is not None:
-        F = F + src_covs6
-    else:
-        F = torch.stack([F[0] + eps, F[1], F[2], F[3] + eps, F[4], F[5] + eps])
-    A = planar.sym_inv(F) * okf[None, :]
-    d = delta[:3, 3, None] - mu
-    rp = p_src + R.T @ d  # r' = Rᵀ r
+    Rt = delta[..., :3, :3].transpose(-1, -2)
+    F = planar.sym_rotate(Rt, ct6)
+    F = F + src_covs6 if src_covs6 is not None else planar.sym_add_eye(F, eps)
+    A = planar.sym_inv(F) * okf
+    d = delta[..., :3, 3, None] - mu
+    return A, p_src + Rt @ d, okf
+
+
+def _unary_sums_plain(p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None):
+    """K1's 29 sums [29] in plain PyTorch (see `linearize_vgicp_unary_plain`)."""
+    A, rp, okf = _unary_weight_residual(p_src, momT, found, delta, min_voxel_points, eps, src_covs6, weights)
     return torch.sum(_unary_terms(p_src, A, rp, okf), dim=1)
+
+
+def vgicp_unary_error(p_src, momT, found, delta, min_voxel_points, eps=1e-3, src_covs6=None, weights=None):
+    """The unary path's error on frozen moment rows, without the system: the
+    port of the reference's `vgicp_unary_error_xla`, which the LM calls for
+    each lambda candidate. Plain PyTorch on every device, as the reference
+    computes it outside any kernel. delta [..., 4, 4] (a leading batch of
+    candidates) -> (error [...], weighted count [...])."""
+    A, rp, okf = _unary_weight_residual(p_src, momT, found, delta, min_voxel_points, eps, src_covs6, weights)
+    u = planar.sym_mul(A, rp)
+    err = u[..., 0, :] * rp[..., 0, :] + u[..., 1, :] * rp[..., 1, :] + u[..., 2, :] * rp[..., 2, :]
+    return torch.sum(err, dim=-1), torch.sum(okf).expand(delta.shape[:-2])
 
 
 def linearize_vgicp_unary_plain(

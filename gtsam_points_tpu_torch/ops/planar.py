@@ -33,9 +33,9 @@ def sym_mul(W6: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def sym_inv(C6: torch.Tensor) -> torch.Tensor:
-    """Planar symmetric 3x3 inverse; near-singular input gives zero (a
-    degenerate correspondence then contributes nothing)."""
-    xx, xy, xz, yy, yz, zz = C6.unbind(0)
+    """Planar symmetric 3x3 inverse, C6 [..., 6, N]; near-singular input
+    gives zero (a degenerate correspondence then contributes nothing)."""
+    xx, xy, xz, yy, yz, zz = C6.unbind(-2)
     co_xx = yy * zz - yz * yz
     co_xy = -(xy * zz - yz * xz)
     co_xz = xy * yz - yy * xz
@@ -46,19 +46,29 @@ def sym_inv(C6: torch.Tensor) -> torch.Tensor:
     co_yy = xx * zz - xz * xz
     co_yz = -(xx * yz - xy * xz)
     co_zz = xx * yy - xy * xy
-    return torch.stack([co_xx, co_xy, co_xz, co_yy, co_yz, co_zz]) * inv_det
+    return torch.stack([co_xx, co_xy, co_xz, co_yy, co_yz, co_zz], dim=-2) * inv_det[..., None, :]
+
+
+def sym_add_eye(C6: torch.Tensor, eps: float) -> torch.Tensor:
+    """C6 [..., 6, N] + eps I: eps on the three diagonal planes."""
+    xx, xy, xz, yy, yz, zz = C6.unbind(-2)
+    return torch.stack([xx + eps, xy, xz, yy + eps, yz, zz + eps], dim=-2)
 
 
 def sym_rotate(R: torch.Tensor, C6: torch.Tensor) -> torch.Tensor:
-    """Planar congruence R C Rᵀ: R [3,3], C6 [6, N] -> [6, N]."""
+    """Planar congruence R C Rᵀ: R [..., 3, 3], C6 [6, N] -> [..., 6, N]
+    (a leading batch of rotations, as the LM's candidates bring)."""
     xx, xy, xz, yy, yz, zz = C6.unbind(0)
     C = ((xx, xy, xz), (xy, yy, yz), (xz, yz, zz))
-    M = [[C[i][0] * R[j, 0] + C[i][1] * R[j, 1] + C[i][2] * R[j, 2] for j in range(3)] for i in range(3)]
+    r = [[R[..., i, j, None] for j in range(3)] for i in range(3)]  # [..., 1] against [N]
+    M = [[C[i][0] * r[j][0] + C[i][1] * r[j][1] + C[i][2] * r[j][2] for j in range(3)] for i in range(3)]
 
     def entry(i, j):
-        return R[i, 0] * M[0][j] + R[i, 1] * M[1][j] + R[i, 2] * M[2][j]
+        return r[i][0] * M[0][j] + r[i][1] * M[1][j] + r[i][2] * M[2][j]
 
-    return torch.stack([entry(0, 0), entry(0, 1), entry(0, 2), entry(1, 1), entry(1, 2), entry(2, 2)])
+    return torch.stack(
+        [entry(0, 0), entry(0, 1), entry(0, 2), entry(1, 1), entry(1, 2), entry(2, 2)], dim=-2
+    )
 
 
 def transform(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,18 @@
-"""Scan-to-map VGICP odometry, point path.
+"""Scan-to-map VGICP odometry.
 
-Port of gtsam_points_tpu/pipelines/odometry.py for `clusters=None`: predict
-with constant velocity, register the scan against the voxel map with a
-`VGICPFactor` in the LM, then insert the scan into the map when the keyframe
-gate opens — incrementally, or with the structural `insert_frame` when the
-incremental insert overflows. The reference's two `lax.cond`s (keyframe gate,
-overflow fallback) are Python branches on values read from the device: they
-choose between inserts of different shapes.
+Port of gtsam_points_tpu/pipelines/odometry.py: predict with constant
+velocity, register the scan against the voxel map in the LM, then insert the
+scan into the map when the keyframe gate opens — incrementally, or with the
+structural `insert_frame` when the incremental insert overflows. The
+reference's two `lax.cond`s (keyframe gate, overflow fallback) are Python
+branches on values read from the device: they choose between inserts of
+different shapes.
+
+Two sources: the scan's points (`clusters=None`: a `VGICPFactor`, K3; the
+incremental point insert), or its clusters (`clusters=` the scan's
+`SourceClusters` in the sensor frame, from registration/cluster.py's
+`cluster_source` at the map's leaf: a `VGICPClustersFactor`, K1 with
+weights; `insert_clusters_incremental`).
 
 `make_odometry_stepper` on a CUDA device is the counterpart of the
 reference's `jax.jit(odometry_step)`: the registration (prediction, every LM
@@ -14,8 +20,6 @@ iteration, the finite guard) is one CUDA graph, captured at the first step
 and replayed once a step with no host read; the gate and the insert stay
 eager. `odometry_step` is the eager step, the counterpart of the un-jitted
 reference function.
-
-The cluster path (`clusters=...`) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gtsam_points_tpu_torch._device import DeviceLike, check_on, resolve_device
-from gtsam_points_tpu_torch.factors.vgicp import VGICPFactor
+from gtsam_points_tpu_torch.factors.vgicp import VGICPClustersFactor, VGICPFactor
 from gtsam_points_tpu_torch.ops import fused_linearize
 from gtsam_points_tpu_torch.ops.voxelmap import (
     GaussianVoxelMap,
@@ -36,6 +40,7 @@ from gtsam_points_tpu_torch.ops.voxelmap import (
 )
 from gtsam_points_tpu_torch.optim.graph import FactorGraph
 from gtsam_points_tpu_torch.optim.lm import LMParams, LMResult, LMStatus, optimize_lm, optimize_lm_unrolled
+from gtsam_points_tpu_torch.registration.cluster import SourceClusters, insert_clusters_incremental
 from gtsam_points_tpu_torch.types.frame import Frame, transform_frame
 from gtsam_points_tpu_torch.utils import se3
 
@@ -76,19 +81,22 @@ def init_odometry(first_frame: Frame, params: OdometryParams, device: DeviceLike
     )
 
 
-def _register(vmap: GaussianVoxelMap, T_world, delta_pred, frame: Frame, params: OdometryParams,
-              optimize=optimize_lm):
-    """-> (T_new, T_delta, LMResult): scan-to-map LM from T_world @ delta_pred.
-    It reads only `vmap.table` and `vmap.leaf` of the map."""
+def _register(vmap: GaussianVoxelMap, T_world, delta_pred, source, params: OdometryParams, optimize=optimize_lm):
+    """-> (T_new, T_delta, LMResult): scan-to-map LM from T_world @ delta_pred
+    on `source`, a frame's points or its `SourceClusters`. It reads only
+    `vmap.table` and `vmap.leaf` of the map."""
     T_pred = T_world @ delta_pred
-    factor = VGICPFactor(
+    common = dict(
         voxelmap=vmap,
-        source=frame,
         fixed_target_pose=torch.eye(4, dtype=torch.float32, device=T_pred.device),
         target_key=-1,
         source_key=0,
         min_voxel_points=params.min_voxel_points,
     )
+    if isinstance(source, SourceClusters):
+        factor = VGICPClustersFactor(clusters=source, **common)
+    else:
+        factor = VGICPFactor(source=source, **common)
     res: LMResult = optimize(FactorGraph([factor], num_poses=1), T_pred[None], _lm_params(params))
     T_new = res.poses[0]
     T_new = torch.where(torch.all(torch.isfinite(T_new)), T_new, T_pred)
@@ -106,9 +114,12 @@ def odometry_register(state: OdometryState, frame: Frame, params: OdometryParams
     return T_new, T_delta, {"error": res.error, "iterations": res.status.num_iterations}
 
 
-def _insert(state: OdometryState, frame: Frame, params: OdometryParams, T_new, T_delta, res: LMResult):
-    """The step's second half: the keyframe gate, then the insert ->
-    (new_state, T_world, diag). Two host reads: the gate and the overflow."""
+def _insert(state: OdometryState, frame: Frame, params: OdometryParams, T_new, T_delta, res: LMResult,
+            clusters: Optional[SourceClusters] = None):
+    """The step's second half: the keyframe gate, then the insert (of the
+    clusters when given) -> (new_state, T_world, diag). Two host reads: the
+    gate and the overflow. On overflow the frame's points take the
+    structural `insert_frame`, with or without clusters."""
     xi = se3.se3_log(T_delta)
     moved = (
         (torch.linalg.norm(xi[3:]) > params.keyframe_trans)
@@ -119,11 +130,14 @@ def _insert(state: OdometryState, frame: Frame, params: OdometryParams, T_new, T
     full_merge = False
     vmap_new = state.vmap
     if inserted:
-        world_frame = transform_frame(T_new, frame)
-        vmap_new, overflow = insert_frame_incremental(state.vmap, world_frame, params.scan_cells_capacity)
+        if clusters is None:
+            world_frame = transform_frame(T_new, frame)
+            vmap_new, overflow = insert_frame_incremental(state.vmap, world_frame, params.scan_cells_capacity)
+        else:
+            vmap_new, overflow = insert_clusters_incremental(state.vmap, clusters, T_new)
         full_merge = bool(overflow.item())
         if full_merge:
-            vmap_new = insert_frame(state.vmap, world_frame)
+            vmap_new = insert_frame(state.vmap, transform_frame(T_new, frame))
     new_state = OdometryState(
         vmap=vmap_new, T_world=T_new, T_delta=T_delta, num_frames=state.num_frames + 1
     )
@@ -145,33 +159,40 @@ def odometry_step(
 ):
     """VGICP scan-to-map odometry step -> (new_state, T_world, diagnostics).
     `T_pred_delta` optionally overrides the constant-velocity prediction.
-    Eager: the LM reads `done` from the device once an iteration."""
+    `clusters` (the frame's `SourceClusters`, sensor frame, at the map's
+    leaf) switches registration and insert to the cluster path; they must
+    lie on the state's device. Eager: the LM reads `done` from the device
+    once an iteration."""
     if clusters is not None:
-        raise NotImplementedError("the cluster path of odometry_step is not ported yet")
-    T_new, T_delta, res = _register(state.vmap, state.T_world, _delta_pred(state, T_pred_delta), frame, params)
-    return _insert(state, frame, params, T_new, T_delta, res)
+        check_on(state.T_world.device, *clusters)
+    source = frame if clusters is None else clusters
+    T_new, T_delta, res = _register(state.vmap, state.T_world, _delta_pred(state, T_pred_delta), source, params)
+    return _insert(state, frame, params, T_new, T_delta, res, clusters)
 
 
 class _GraphedRegister:
     """`_register` with all LM iterations (`optimize_lm_unrolled`) as one CUDA
     graph. Its inputs are static buffers that each call fills on the current
-    stream: the map's probe table and leaf, the frame's points, mask and
-    covariances, T_world and the predicted motion. The graph holds the
-    factor's planar views too, so they are formed from each call's frame.
+    stream: the map's probe table and leaf, T_world, the predicted motion,
+    and the source's tensors (`tensors_of`). The graph holds the factor's
+    planar views (or regularized cluster covariances) too, so they are
+    formed from each call's source.
 
-    K3's wrapper counts its launches on the host, so a replay does not reach
-    it: `fused_linearize` takes back what the capture counted, and each call
-    counts those launches again as replayed."""
+    The wrappers count their launches on the host, so a replay does not
+    reach them: `fused_linearize` takes back what the capture counted of K3
+    and K1, and each call counts those launches again as replayed."""
 
-    def __init__(self, params: OdometryParams, state: OdometryState, frame: Frame, delta_pred):
+    def __init__(self, params: OdometryParams, state: OdometryState, source, delta_pred):
         self.params = params
-        self.key = self.key_of(state, frame)
+        self.key = self.key_of(state, source)
         vmap = state.vmap
         self.table = vmap.table.clone()
         self.leaf = vmap.leaf.clone()
-        self.points = frame.points.clone()
-        self.mask = frame.mask.clone()
-        self.covs = None if frame.covs is None else frame.covs.clone()
+        self.buffers = [t.clone() for t in self.tensors_of(source)]
+        if isinstance(source, SourceClusters):
+            self.source = SourceClusters(*self.buffers)
+        else:
+            self.source = Frame(*self.buffers[:2], covs=self.buffers[2] if len(self.buffers) > 2 else None)
         self.T_world = state.T_world.clone()
         self.delta_pred = delta_pred.clone()
         dev = self.table.device
@@ -197,44 +218,51 @@ class _GraphedRegister:
             with torch.cuda.graph(self.graph):
                 self.out = self._body()
 
-        self.k3_launches = fused_linearize.captured_launches(capture)
+        self.recorded = fused_linearize.captured_launches(capture)
 
     @staticmethod
-    def key_of(state: OdometryState, frame: Frame):
-        return (frame.capacity, tuple(state.vmap.table.shape), frame.covs is None, state.T_world.device)
+    def tensors_of(source) -> tuple:
+        """The source's tensors that the LM reads: the four cluster fields,
+        or the frame's points, mask and covariances (when it has them)."""
+        if isinstance(source, SourceClusters):
+            return tuple(source)
+        return (source.points, source.mask) + (() if source.covs is None else (source.covs,))
+
+    @staticmethod
+    def key_of(state: OdometryState, source):
+        return (type(source), source.capacity, len(_GraphedRegister.tensors_of(source)),
+                tuple(state.vmap.table.shape), state.T_world.device)
 
     def _body(self):
-        frame = Frame(points=self.points, mask=self.mask, covs=self.covs)
-        return _register(self.vmap, self.T_world, self.delta_pred, frame, self.params, optimize_lm_unrolled)
+        return _register(self.vmap, self.T_world, self.delta_pred, self.source, self.params, optimize_lm_unrolled)
 
-    def __call__(self, state: OdometryState, frame: Frame, delta_pred):
+    def __call__(self, state: OdometryState, source, delta_pred):
         """-> (T_new, T_delta, LMResult), cloned out of the graph's memory,
         which the next replay overwrites."""
         self.table.copy_(state.vmap.table)
         self.leaf.copy_(state.vmap.leaf)
-        self.points.copy_(frame.points)
-        self.mask.copy_(frame.mask)
-        if self.covs is not None:
-            self.covs.copy_(frame.covs)
+        for buf, t in zip(self.buffers, self.tensors_of(source)):
+            buf.copy_(t)
         self.T_world.copy_(state.T_world)
         self.delta_pred.copy_(delta_pred)
         self.graph.replay()
-        fused_linearize.replayed(self.k3_launches)
+        fused_linearize.replayed(self.recorded)
         T_new, T_delta, res = self.out
         status = LMStatus(*(t.clone() for t in res.status))
         return T_new.clone(), T_delta.clone(), LMResult(res.poses.clone(), res.error.clone(), status)
 
 
 def make_odometry_stepper(params: OdometryParams, donate: bool = True, *, device: DeviceLike = None):
-    """The streaming step fn(state, frame, T_pred_delta=None) -> (new_state,
-    T_world, diag) on `device` (default `cuda`).
+    """The streaming step fn(state, frame, T_pred_delta=None, clusters=None)
+    -> (new_state, T_world, diag) on `device` (default `cuda`).
 
     On a CUDA device the registration is one CUDA graph, captured at the
-    first step (again when the frame capacity, the map's table shape,
-    whether the frame has covariances or the device changes) and replayed
-    once a step: it runs all LM iterations, so its poses equal
-    `odometry_step`'s, and reads nothing from the device. A failed capture
-    or replay raises. On the CPU the step is `odometry_step`.
+    first step (again when the map's table shape or the device changes, when
+    clusters come or go, or when the frame's capacity and covariances or the
+    clusters' capacity change) and replayed once a step: it runs all LM
+    iterations, so its poses equal `odometry_step`'s, and reads nothing from
+    the device. A failed capture or replay raises. On the CPU the step is
+    `odometry_step`.
 
     `donate` is the reference's signature; it does nothing here. The
     reference donates the state's buffers to XLA; this stepper never
@@ -244,18 +272,17 @@ def make_odometry_stepper(params: OdometryParams, donate: bool = True, *, device
     dev = resolve_device(device)
     graphed: Optional[_GraphedRegister] = None
 
-    def step(state: OdometryState, frame: Frame, T_pred_delta=None, clusters=None):
+    def step(state: OdometryState, frame: Frame, T_pred_delta=None, clusters: Optional[SourceClusters] = None):
         nonlocal graphed
-        check_on(dev, state.T_world, frame.points)
+        check_on(dev, state.T_world, frame.points, *(clusters or ()))
         if dev.type != "cuda":
             return odometry_step(state, frame, params, T_pred_delta, clusters)
-        if clusters is not None:
-            raise NotImplementedError("the cluster path of odometry_step is not ported yet")
         delta_pred = _delta_pred(state, T_pred_delta)
-        if graphed is None or graphed.key != _GraphedRegister.key_of(state, frame):
+        source = frame if clusters is None else clusters
+        if graphed is None or graphed.key != _GraphedRegister.key_of(state, source):
             graphed = None  # free the old graph's memory before capturing anew
-            graphed = _GraphedRegister(params, state, frame, delta_pred)
-        T_new, T_delta, res = graphed(state, frame, delta_pred)
-        return _insert(state, frame, params, T_new, T_delta, res)
+            graphed = _GraphedRegister(params, state, source, delta_pred)
+        T_new, T_delta, res = graphed(state, source, delta_pred)
+        return _insert(state, frame, params, T_new, T_delta, res, clusters)
 
     return step

@@ -20,6 +20,7 @@ from gtsam_points_tpu.utils import se3 as jse3
 from gtsam_points_tpu.utils.synthetic import ring_scans, ring_trajectory, ring_world
 from gtsam_points_tpu_torch.ops.features import estimate_normals_covs_moments as tcovs
 from gtsam_points_tpu_torch.pipelines import odometry as todo
+from gtsam_points_tpu_torch.registration.cluster import SourceClusters, cluster_source
 from gtsam_points_tpu_torch.types.frame import make_frame as tmake
 
 torch.set_num_threads(1)
@@ -94,8 +95,9 @@ def test_odometry_ate_recorded(runs):
 
 
 def test_odometry_register_and_cluster_path():
-    """odometry_register returns the registration half; the cluster path is not
-    ported yet and says so."""
+    """odometry_register returns the registration half; the cluster path runs
+    (tests/test_torch_cluster.py holds it to JAX) and refuses clusters on
+    another device than the state, in the step and in the stepper."""
     world = ring_world(0, 24000)
     T_true = ring_trajectory(2, lap=100)
     scans = ring_scans(world, T_true, scan_n=SCAN_N, seed=1)
@@ -107,8 +109,15 @@ def test_odometry_register_and_cluster_path():
     assert np.linalg.norm(T_new[:3, 3].numpy() - prior[:3, 3].numpy()) < 0.1
     assert 1 <= int(diag["iterations"]) <= tp.max_iterations
     np.testing.assert_allclose(T_delta.numpy(), T_new.numpy(), atol=1e-6)  # T_world was identity
-    with pytest.raises(NotImplementedError):
-        todo.odometry_step(state, frames[1], tp, clusters=object())
+    clusters = cluster_source(frames[1], tp.voxel_resolution, 2048, device="cpu")
+    state2, T, diag = todo.odometry_step(state, frames[1], tp, prior, clusters=clusters)
+    assert np.linalg.norm(T[:3, 3].numpy() - prior[:3, 3].numpy()) < 0.1
+    assert diag["inserted"] and int(state2.vmap.num_voxels) > int(state.vmap.num_voxels)
+    elsewhere = SourceClusters(*(t.to("meta") for t in clusters))
+    with pytest.raises(ValueError):
+        todo.odometry_step(state, frames[1], tp, clusters=elsewhere)
+    with pytest.raises(ValueError):
+        todo.make_odometry_stepper(tp, device="cpu")(state, frames[1], clusters=elsewhere)
 
 
 def test_stepper_signature_and_params():

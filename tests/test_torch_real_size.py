@@ -34,6 +34,30 @@ moves the JAX trajectory. A script mode only; Tier-1 does not run it.
 
     JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 24 --inits 0 --orders 0 --odometry-orders 4
 
+Cluster path (`--cluster-inits N`, `--cluster-steps K`): chip_smoke.py's
+cluster phases, on a 26k-point ring world whose 25k-point scans see nearly
+all of it (3238 leaf-1.0 cells a scan). The cluster pyramid registers scan
+1, moved back by the true relative pose and clustered at
+DEFAULT_CLUSTER_LEAF into DEFAULT_CLUSTER_CAPACITY slots, against scan 0's
+DEFAULT_CLUSTER_STAGES pyramid from N inits se3_exp(uniform(-0.1, 0.1, 6))
+with RandomState(3); the cluster odometry runs K steps with
+`OdometryParams()`, each scan clustered at the map's leaf and each step
+given the true motion as its prior. Both packages run; the report prints
+the JAX poses and the JAX cluster ATE (mean and max) in the form
+chip_smoke.py keeps them:
+
+    JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --cluster-inits 64 --cluster-steps 24
+
+With `--cluster-orders K` the JAX package alone runs the cluster pyramid
+again with both scans' points in K other orders and prints each init's
+largest pose shift as chip_smoke.py keeps it (CLUSTER_ORDER_SHIFT_M and
+_RAD, the per-init bounds of its cluster pyramid phase):
+
+    JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --cluster-inits 64 --cluster-orders 8
+
+As a test it registers from the first init that no order moves, holds the
+port's pose to the JAX pose and the JAX pose to the one chip_smoke.py keeps.
+
 Order shift: the port alone builds the target's pyramid from the same
 points in other orders, so only the order of the moment sums changes, and
 registers from the eight inits again. The largest pose shift (1.767e-3 m
@@ -61,6 +85,7 @@ import jax  # noqa: E402
 
 from gtsam_points_tpu.ops.features import estimate_normals_covs_moments as jcovs  # noqa: E402
 from gtsam_points_tpu.pipelines import odometry as jodo  # noqa: E402
+from gtsam_points_tpu.registration import cluster as jcl  # noqa: E402
 from gtsam_points_tpu.registration import pyramid as jpyr  # noqa: E402
 from gtsam_points_tpu.types.frame import make_frame as jmake  # noqa: E402
 from gtsam_points_tpu.types.frame import transform_frame as jtransform  # noqa: E402
@@ -68,6 +93,7 @@ from gtsam_points_tpu.utils import se3 as jse3  # noqa: E402
 from gtsam_points_tpu.utils.synthetic import ring_scans, ring_trajectory, ring_world  # noqa: E402
 from gtsam_points_tpu_torch.ops.features import estimate_normals_covs_moments as tcovs  # noqa: E402
 from gtsam_points_tpu_torch.pipelines import odometry as todo  # noqa: E402
+from gtsam_points_tpu_torch.registration import cluster as tcl  # noqa: E402
 from gtsam_points_tpu_torch.registration import pyramid as tpyr  # noqa: E402
 from gtsam_points_tpu_torch.types.frame import make_frame as tmake  # noqa: E402
 from gtsam_points_tpu_torch.types.frame import transform_frame as ttransform  # noqa: E402
@@ -90,6 +116,9 @@ KEPT_POSE_TOL = 1e-4
 # the order shift's bound: the bound the card-built pyramid was held to
 # while the card's map build summed in no fixed order
 ORDER_SHIFT_BOUND_M = 5e-3
+# an init whose JAX pose the order of the sums moves by less than this
+# (chip_smoke.CLUSTER_ORDER_SHIFT_M) is stable: the test registers from one
+STABLE_SHIFT_M = 1e-4
 
 
 def _ate(T_true, poses):
@@ -253,7 +282,7 @@ def compare_pyramid(n_inits: int) -> dict:
         "truth_jax_rad": jrot.tolist(),
         "truth_torch_m": ttrans.tolist(),
         "truth_torch_rad": trot.tolist(),
-        "jax_poses": [p[:3].reshape(12).tolist() for p in jposes],
+        "jax_poses": _pose_rows(jposes),
         "seconds_jax": t1 - t0,
         "seconds_torch": t2 - t1,
     }
@@ -271,13 +300,207 @@ def pyramid_summary(r: dict) -> str:
 def kept_pose_error(r: dict):
     """Largest (translation, rotation) gap between this run's JAX poses and
     the ones chip_smoke.py keeps."""
-    kept = np.asarray(chip_smoke.PYRAMID_JAX_POSES[: r["inits"]], np.float32).reshape(-1, 3, 4)
-    new = np.asarray(r["jax_poses"], np.float32).reshape(-1, 3, 4)
+    return _kept_gap(chip_smoke.PYRAMID_JAX_POSES[: r["inits"]], r["jax_poses"])
+
+
+def _pose_rows(poses) -> list:
+    return [np.asarray(p)[:3].reshape(12).tolist() for p in poses]
+
+
+def _print_kept(name: str, rows: list) -> None:
+    print(f"JAX poses (top three rows, row-major), as chip_smoke.{name}:")
+    for p in rows:
+        print("    [" + ", ".join(np.format_float_positional(np.float32(x), unique=True) for x in p) + "],")
+
+
+def _kept_gap(kept_rows, rows):
+    """Largest (translation, rotation) gap between two lists of top-three-row poses."""
+    kept = np.asarray(kept_rows, np.float32).reshape(-1, 3, 4)
+    new = np.asarray(rows, np.float32).reshape(-1, 3, 4)
     bottom = np.broadcast_to(np.asarray([0, 0, 0, 1], np.float32), (len(kept), 1, 4))
     rot, trans = tse3.pose_error(
         torch.from_numpy(np.concatenate([kept, bottom], 1)), torch.from_numpy(np.concatenate([new, bottom], 1))
     )
     return float(trans.max()), float(rot.max())
+
+
+def cluster_scans(n_poses: int):
+    """chip_smoke.py's cluster scene -> (true poses, scans)."""
+    world = ring_world(0, chip_smoke.CLUSTER_WORLD_N)
+    T_true = ring_trajectory(n_poses, lap=100)
+    return T_true, ring_scans(world, T_true, scan_n=SCAN_N, seed=1)
+
+
+def _jax_cluster_pyramid(tgt, src, T_rel, xis):
+    """The JAX cluster pyramid from each init -> (poses, source frame, clusters)."""
+    target = jax.jit(jcovs)(jmake(tgt))
+    source = jtransform(jax.numpy.asarray(T_rel), jax.jit(jcovs)(jmake(src)))
+    maps = jax.jit(lambda f: jpyr.build_pyramid(f, jcl.DEFAULT_CLUSTER_STAGES))(target)
+    jc = jax.jit(jcl.cluster_source, static_argnums=(1, 2))(
+        source, jcl.DEFAULT_CLUSTER_LEAF, jcl.DEFAULT_CLUSTER_CAPACITY)
+    reg = jax.jit(lambda maps, cl, T0: jcl.register_clusters_pyramid(maps, cl, T0))
+    return [np.asarray(reg(maps, jc, jse3.se3_exp(jax.numpy.asarray(xi)))) for xi in xis], source, jc
+
+
+def _cluster_pyramid_inputs(inits):
+    """-> (target scan, source scan, true relative pose, [len(inits), 6] xis)
+    for the inits of these indices."""
+    T_true, scans = cluster_scans(2)
+    T_rel = (np.linalg.inv(T_true[0]) @ T_true[1]).astype(np.float32)
+    xis = np.random.RandomState(chip_smoke.CLUSTER_SEED).uniform(
+        -0.1, 0.1, (chip_smoke.CLUSTER_INITS, 6)).astype(np.float32)[list(inits)]
+    return scans[0], scans[1], T_rel, xis
+
+
+def compare_cluster_pyramid(inits) -> dict:
+    """The cluster pyramid in both packages from the inits of these indices
+    -> per-pose gaps, errors against the truth (identity), the JAX poses,
+    the occupied and dropped cells, seconds."""
+    tgt, src, T_rel, xis = _cluster_pyramid_inputs(inits)
+    leaf, cap = jcl.DEFAULT_CLUSTER_LEAF, jcl.DEFAULT_CLUSTER_CAPACITY
+
+    t0 = time.perf_counter()
+    jposes, source, jc = _jax_cluster_pyramid(tgt, src, T_rel, xis)
+    t1 = time.perf_counter()
+    ttarget = tcovs(tmake(tgt, device="cpu"))
+    tsource = ttransform(torch.from_numpy(T_rel), tcovs(tmake(src, device="cpu")))
+    tmaps = tpyr.build_pyramid(ttarget, tcl.DEFAULT_CLUSTER_STAGES, device="cpu")
+    tc = tcl.cluster_source(tsource, leaf, cap, device="cpu")
+    tposes = [tcl.register_clusters_pyramid(tmaps, tc, T0, device="cpu").numpy()
+              for T0 in tse3.se3_exp(torch.from_numpy(xis))]
+    t2 = time.perf_counter()
+
+    jp, tp = torch.from_numpy(np.stack(jposes)), torch.from_numpy(np.stack(tposes))
+    rot, trans = tse3.pose_error(jp, tp)
+    eye = torch.eye(4).expand(len(xis), 4, 4)
+    jrot, jtrans = tse3.pose_error(eye, jp)
+    trot, ttrans = tse3.pose_error(eye, tp)
+    # every point of the source is in a cluster unless a cell was dropped
+    dropped = int(np.asarray(source.mask).sum()) - int(np.asarray(jc.weight).sum())
+    return {
+        "inits": list(inits),
+        "cells": int(np.asarray(jc.mask).sum()),
+        "capacity": cap,
+        "dropped_points": dropped,
+        "gap_m": trans.tolist(),
+        "gap_rad": rot.tolist(),
+        "truth_jax_m": jtrans.tolist(),
+        "truth_jax_rad": jrot.tolist(),
+        "truth_torch_m": ttrans.tolist(),
+        "truth_torch_rad": trot.tolist(),
+        "jax_poses": _pose_rows(jposes),
+        "seconds_jax": t1 - t0,
+        "seconds_torch": t2 - t1,
+    }
+
+
+def cluster_order_shift(n_inits: int, n_orders: int) -> dict:
+    """The JAX package alone: the cluster pyramid again with both scans'
+    points in `n_orders` other orders (RandomState(300 + i) permutations,
+    so every cell and every covariance is summed in another order) against
+    the scans' own order -> per order the shift of each init's pose."""
+    tgt, src, T_rel, xis = _cluster_pyramid_inputs(range(n_inits))
+    base = torch.from_numpy(np.stack(_jax_cluster_pyramid(tgt, src, T_rel, xis)[0]))
+    truth = tse3.pose_error(torch.eye(4).expand(len(xis), 4, 4), base)[1]
+    r = {"inits": n_inits, "orders": n_orders, "truth_m": truth.tolist(), "shift_m": [], "shift_rad": []}
+    for i in range(n_orders):
+        rng = np.random.RandomState(300 + i)
+        other = _jax_cluster_pyramid(tgt[rng.permutation(len(tgt))], src[rng.permutation(len(src))], T_rel, xis)[0]
+        rot, trans = tse3.pose_error(base, torch.from_numpy(np.stack(other)))
+        r["shift_m"].append(trans.tolist())
+        r["shift_rad"].append(rot.tolist())
+    return r
+
+
+def cluster_order_summary(r: dict) -> str:
+    shift = np.asarray(r["shift_m"])
+    worst = shift.max(0)
+    order = np.argsort(-worst)[:5]
+    stable = [int(i) for i in np.nonzero(worst < STABLE_SHIFT_M)[0]]
+    return (
+        f"cluster pyramid, JAX against JAX with both scans in {r['orders']} other orders, {r['inits']} inits: "
+        f"largest shift per order (m) " + ", ".join(f"{x:.6e}" for x in shift.max(1))
+        + f"; max {shift.max():.6e} m {np.max(r['shift_rad']):.6e} rad; inits over 1e-3 m in any order "
+        f"{int((worst > 1e-3).sum())}; the five most moved (init, shift m, its JAX pose's error against the "
+        f"truth m): " + ", ".join(f"({i}, {worst[i]:.3e}, {r['truth_m'][i]:.4f})" for i in order)
+        + f"; the {len(stable)} inits moved less than {STABLE_SHIFT_M} m in every order (at most "
+        f"{worst[stable].max():.3e} m): {stable}"
+    )
+
+
+def _print_shifts(r: dict) -> None:
+    """Each init's largest shift over the orders, as chip_smoke.py keeps them."""
+    for unit in ("m", "rad"):
+        worst = np.asarray(r[f"shift_{unit}"]).max(0)
+        print(f"CLUSTER_ORDER_SHIFT_{unit.upper()} = [" + ", ".join(f"{x:.3e}" for x in worst) + "]", flush=True)
+
+
+def cluster_pyramid_summary(r: dict) -> str:
+    return (
+        f"cluster pyramid, {len(r['inits'])} inits, {r['cells']} of {r['capacity']} cluster slots occupied, "
+        f"{r['dropped_points']} points in dropped cells: max per-pose gap {max(r['gap_m']):.6e} m "
+        f"{max(r['gap_rad']):.6e} rad; error against the truth jax max {max(r['truth_jax_m']):.6f} m "
+        f"{max(r['truth_jax_rad']):.6f} rad, port max {max(r['truth_torch_m']):.6f} m "
+        f"{max(r['truth_torch_rad']):.6f} rad; {r['seconds_jax']:.1f} s / {r['seconds_torch']:.1f} s"
+    )
+
+
+def compare_cluster_odometry(steps: int) -> dict:
+    """Cluster odometry in both packages over `steps` steps with the motion
+    prior -> per-pose gaps, ATEs, LM iterations, map sizes, seconds."""
+    T_true, scans = cluster_scans(steps + 1)
+    priors = [(np.linalg.inv(a) @ b).astype(np.float32) for a, b in zip(T_true[:-1], T_true[1:])]
+    cap = jcl.DEFAULT_CLUSTER_CAPACITY
+
+    t0 = time.perf_counter()
+    jp = jodo.OdometryParams()
+    step = jax.jit(jodo.odometry_step, static_argnums=2)
+    clus = jax.jit(jcl.cluster_source, static_argnums=(1, 2))
+    frames = [jax.jit(jcovs)(jmake(s)) for s in scans]
+    state = jodo.init_odometry(frames[0], jp)
+    jposes, jiters = [np.eye(4, dtype=np.float32)], []
+    for f, prior in zip(frames[1:], priors):
+        state, T, diag = step(state, f, jp, jax.numpy.asarray(prior), clus(f, jp.voxel_resolution, cap))
+        jposes.append(np.asarray(T))
+        jiters.append(int(diag["iterations"]))
+    jvox = int(state.vmap.num_voxels)
+    t1 = time.perf_counter()
+    tp = todo.OdometryParams()
+    tstep = todo.make_odometry_stepper(tp, device="cpu")
+    tframes = [tcovs(tmake(s, device="cpu")) for s in scans]
+    tstate = todo.init_odometry(tframes[0], tp, device="cpu")
+    tposes, titers = [np.eye(4, dtype=np.float32)], []
+    for f, prior in zip(tframes[1:], priors):
+        cl = tcl.cluster_source(f, tp.voxel_resolution, cap, device="cpu")
+        tstate, T, diag = tstep(tstate, f, torch.from_numpy(prior), cl)
+        tposes.append(T.numpy())
+        titers.append(int(diag["iterations"]))
+    t2 = time.perf_counter()
+    rot, trans = tse3.pose_error(torch.from_numpy(np.stack(jposes)), torch.from_numpy(np.stack(tposes)))
+    return {
+        "steps": steps,
+        "gap_m": trans.tolist(),
+        "gap_rad": rot.tolist(),
+        "ate_jax_m": _ate(T_true, jposes),
+        "ate_torch_m": _ate(T_true, tposes),
+        "iters_jax": jiters,
+        "iters_torch": titers,
+        "voxels_jax": jvox,
+        "voxels_torch": int(tstate.vmap.num_voxels),
+        "seconds_jax": t1 - t0,
+        "seconds_torch": t2 - t1,
+    }
+
+
+def cluster_odometry_summary(r: dict) -> str:
+    aj, at = np.asarray(r["ate_jax_m"]), np.asarray(r["ate_torch_m"])
+    return (
+        f"cluster odometry, {r['steps']} steps with the prior: max per-pose gap {max(r['gap_m']):.6e} m "
+        f"{max(r['gap_rad']):.6e} rad; ATE jax mean {aj.mean():.6f} max {aj.max():.6f} m (as "
+        f"chip_smoke.CLUSTER_ATE_JAX_MEAN_M, CLUSTER_ATE_JAX_MAX_M), port mean {at.mean():.6f} "
+        f"max {at.max():.6f} m; LM iterations jax {r['iters_jax']} port {r['iters_torch']}; voxels "
+        f"{r['voxels_jax']} / {r['voxels_torch']}; {r['seconds_jax']:.1f} s / {r['seconds_torch']:.1f} s"
+    )
 
 
 def order_shift(n_orders: int) -> dict:
@@ -352,6 +575,20 @@ def test_real_size_pyramid_matches_jax():
     assert trans < KEPT_POSE_TOL and rot < KEPT_POSE_TOL, (trans, rot)
 
 
+def test_real_size_cluster_pyramid_matches_jax():
+    """The first init whose pose the order of the sums does not move
+    (chip_smoke.CLUSTER_ORDER_SHIFT_M under STABLE_SHIFT_M)."""
+    torch.set_num_threads(1)
+    init = next(i for i, shift in enumerate(chip_smoke.CLUSTER_ORDER_SHIFT_M) if shift < STABLE_SHIFT_M)
+    r = compare_cluster_pyramid([init])
+    print(cluster_pyramid_summary(r))
+    assert r["cells"] < r["capacity"] and r["dropped_points"] == 0
+    assert max(r["gap_m"]) < POSE_TOL_M, r["gap_m"]
+    assert max(r["gap_rad"]) < POSE_TOL_RAD, r["gap_rad"]
+    trans, rot = _kept_gap(chip_smoke.CLUSTER_PYRAMID_JAX_POSES[init:init + 1], r["jax_poses"])
+    assert trans < KEPT_POSE_TOL and rot < KEPT_POSE_TOL, (trans, rot)
+
+
 def test_real_size_first_steps_match_jax():
     torch.set_num_threads(1)
     r = compare(TEST_STEPS, with_prior=True)
@@ -370,6 +607,13 @@ def main() -> int:
                         help="other point orders of the target for the pyramid's order shift (0: none)")
     parser.add_argument("--odometry-orders", type=int, default=0,
                         help="other point orders of every scan for the JAX odometry's order shift (0: none)")
+    parser.add_argument("--cluster-inits", type=int, default=0,
+                        help="cluster pyramid inits, both packages (0: no cluster pyramid run)")
+    parser.add_argument("--cluster-steps", type=int, default=0,
+                        help="cluster odometry steps with the motion prior, both packages (0: none)")
+    parser.add_argument("--cluster-orders", type=int, default=0,
+                        help="other point orders of both scans for the JAX cluster pyramid's order shift, "
+                             "over --cluster-inits inits (0: none)")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -381,13 +625,25 @@ def main() -> int:
     if args.inits:
         r = compare_pyramid(args.inits)
         print(pyramid_summary(r), flush=True)
-        print("JAX poses (top three rows, row-major), as chip_smoke.PYRAMID_JAX_POSES:")
-        for p in r["jax_poses"]:
-            print("    [" + ", ".join(np.format_float_positional(np.float32(x), unique=True) for x in p) + "],")
+        _print_kept("PYRAMID_JAX_POSES", r["jax_poses"])
         report.append(r)
     if args.orders:
         r = order_shift(args.orders)
         print(order_summary(r), flush=True)
+        report.append(r)
+    if args.cluster_inits:
+        r = compare_cluster_pyramid(range(args.cluster_inits))
+        print(cluster_pyramid_summary(r), flush=True)
+        _print_kept("CLUSTER_PYRAMID_JAX_POSES", r["jax_poses"])
+        report.append(r)
+    if args.cluster_orders:
+        r = cluster_order_shift(args.cluster_inits, args.cluster_orders)
+        print(cluster_order_summary(r), flush=True)
+        _print_shifts(r)
+        report.append(r)
+    if args.cluster_steps:
+        r = compare_cluster_odometry(args.cluster_steps)
+        print(cluster_odometry_summary(r), flush=True)
         report.append(r)
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
