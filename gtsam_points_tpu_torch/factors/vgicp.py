@@ -13,16 +13,17 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from gtsam_points_tpu_torch.factors.base import MatchingFactorMixin, factor_poses
+from gtsam_points_tpu_torch.factors.base import MatchingFactorMixin, relative_pose
 from gtsam_points_tpu_torch.ops import fused_linearize, planar
 from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, build_voxelmap, lookup_fetch_planar
-from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
-from gtsam_points_tpu_torch.utils import se3
+
+if TYPE_CHECKING:  # registration/cluster.py imports ops that import this package
+    from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,15 +45,11 @@ class VGICPFactor(MatchingFactorMixin):
         covs6 = torch.stack([c[:, 0, 0], c[:, 0, 1], c[:, 0, 2], c[:, 1, 1], c[:, 1, 2], c[:, 2, 2]])
         return pts_p, covs6
 
-    def _delta(self, poses: torch.Tensor) -> torch.Tensor:
-        T_t, T_s = factor_poses(self, poses)
-        return se3.se3_inverse(T_t) @ T_s
-
     def correspondences(self, poses: torch.Tensor):
         """Voxel probe + fused Mahalanobis weights at `poses`.
         -> (found [N], mu [3, N], W6 [6, N])."""
         pts_p, covs6 = self._source_planar
-        delta = self._delta(poses)
+        delta = relative_pose(self, poses)
         pm = planar.transform(delta, pts_p)
         found, count, mu, C6 = lookup_fetch_planar(self.voxelmap, pm, self.source.mask)
         found = found & (count >= self.min_voxel_points)
@@ -67,17 +64,17 @@ class VGICPFactor(MatchingFactorMixin):
         function that scores candidate poses on the same set."""
         found, mu, W6 = corr
         pts_p, _ = self._source_planar
-        lin = fused_linearize.linearize_fused(pts_p, mu, W6, found, self._delta(poses))
+        lin = fused_linearize.linearize_fused(pts_p, mu, W6, found, relative_pose(self, poses))
 
         def err_fn(new_poses):
-            return fused_linearize.error_fused(pts_p, mu, W6, found, self._delta(new_poses))
+            return fused_linearize.error_fused(pts_p, mu, W6, found, relative_pose(self, new_poses))
 
         return lin, err_fn
 
     def error(self, poses: torch.Tensor) -> torch.Tensor:
         found, mu, W6 = self.correspondences(poses)
         pts_p, _ = self._source_planar
-        pm = planar.transform(self._delta(poses), pts_p)
+        pm = planar.transform(relative_pose(self, poses), pts_p)
         return planar.weighted_error(pm - mu, W6, found)
 
 
@@ -127,14 +124,10 @@ class VGICPClustersFactor(MatchingFactorMixin):
     def _cl_covs6(self) -> torch.Tensor:
         return planar.sym_add_eye(self.clusters.covs6, self.eps)
 
-    def _delta(self, poses: torch.Tensor) -> torch.Tensor:
-        T_t, T_s = factor_poses(self, poses)
-        return se3.se3_inverse(T_t) @ T_s
-
     def correspondences(self, poses: torch.Tensor):
         """Probe at `poses` -> (momT [10, C], found [C])."""
         cl = self.clusters
-        return fused_linearize.probe_moments(self.voxelmap, cl.pts_p, cl.mask, self._delta(poses))
+        return fused_linearize.probe_moments(self.voxelmap, cl.pts_p, cl.mask, relative_pose(self, poses))
 
     def _error(self, corr, delta: torch.Tensor) -> torch.Tensor:
         momT, found = corr
@@ -149,12 +142,12 @@ class VGICPClustersFactor(MatchingFactorMixin):
         momT, found = corr
         cl = self.clusters
         lin = fused_linearize.linearize_vgicp_unary(
-            cl.pts_p, momT, found, self._delta(poses), self.min_voxel_points,
+            cl.pts_p, momT, found, relative_pose(self, poses), self.min_voxel_points,
             src_covs6=self._cl_covs6, weights=cl.weight,
         )
 
         def err_fn(new_poses):
-            return self._error(corr, self._delta(new_poses))
+            return self._error(corr, relative_pose(self, new_poses))
 
         return lin, err_fn
 
@@ -165,7 +158,7 @@ class VGICPClustersFactor(MatchingFactorMixin):
         return self.linearize_corr(poses, self.correspondences(poses))
 
     def error(self, poses: torch.Tensor) -> torch.Tensor:
-        return self._error(self.correspondences(poses), self._delta(poses))
+        return self._error(self.correspondences(poses), relative_pose(self, poses))
 
 
 def make_vgicp_clusters_factor(

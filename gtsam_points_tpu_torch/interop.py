@@ -1,10 +1,12 @@
 """Carry state across from the JAX package as numpy arrays.
 
-The system has no weights: its state is the voxel map, the frames and a
-scan's source clusters. These functions take the numpy arrays of a JAX
-`GaussianVoxelMap` (its seven fields), of a `Frame` and of a
-`SourceClusters` (its four fields), and build the port's state from them
-bit for bit, so both packages can start from the same map.
+The system has no weights: its state is the voxel map, the frames, a
+scan's source clusters and a frame's hash grid. These functions take the
+numpy arrays of a JAX `GaussianVoxelMap` (its seven fields), of a `Frame`
+(with its normals and covariances), of a `SourceClusters` (its four fields)
+and of a `HashGrid` (its nine arrays and its coarse level), and build the
+port's state from them bit for bit, so both packages can start from the
+same map or search the same grid.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from gtsam_points_tpu_torch._device import DeviceLike, resolve_device
+from gtsam_points_tpu_torch.ops.hash_grid import HashGrid
 from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap
 from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
@@ -29,6 +32,17 @@ _VMAP_DTYPES = {
     "table": np.float32,
 }
 _FRAME_FIELDS = ("points", "mask", "normals", "covs", "intensities", "times")
+_GRID_DTYPES = {
+    "leaf": np.float32,
+    "cell_keys": np.int32,
+    "cell_points": np.float32,
+    "cell_pt_index": np.int32,
+    "cell_count": np.int32,
+    "cell_records": np.float32,
+    "num_cells": np.int32,
+    "hash_index": np.int32,
+    "neighbor_rows": np.int32,
+}
 _CLUSTER_DTYPES = {"pts_p": np.float32, "covs6": np.float32, "weight": np.float32, "mask": bool}
 
 
@@ -36,6 +50,10 @@ def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
     # a byte copy (never shared with the caller's buffer, which may be a
     # read-only JAX array), so NaN-bitcast keys survive
     return torch.from_numpy(np.array(a, dtype=dtype, copy=True, order="C")).to(dev)
+
+
+def _numpy(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def voxelmap_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = None) -> GaussianVoxelMap:
@@ -69,3 +87,24 @@ def clusters_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = N
 def clusters_to_numpy(clusters: SourceClusters) -> dict:
     """The clusters' fields as numpy arrays (for comparison with the JAX ones)."""
     return {k: getattr(clusters, k).cpu().numpy() for k in _CLUSTER_DTYPES}
+
+
+def hash_grid_from_numpy(arrays: Mapping, device: DeviceLike = None) -> HashGrid:
+    """`arrays`: the nine arrays of a JAX `HashGrid` (leaf, cell_keys,
+    cell_points, cell_pt_index, cell_count, cell_records, num_cells,
+    hash_index, neighbor_rows) and `coarse`, the same mapping for the coarse
+    level or None (or absent)."""
+    dev = resolve_device(device)
+    coarse = arrays.get("coarse")
+    return HashGrid(
+        **{k: _tensor(arrays[k], dt, dev) for k, dt in _GRID_DTYPES.items()},
+        coarse=None if coarse is None else hash_grid_from_numpy(coarse, dev),
+    )
+
+
+def hash_grid_to_numpy(grid) -> dict:
+    """The grid's arrays as numpy arrays, with `coarse` the same dict for
+    the coarse level or None. Takes the port's `HashGrid` or the JAX one."""
+    out = {k: _numpy(getattr(grid, k)) for k in _GRID_DTYPES}
+    out["coarse"] = None if grid.coarse is None else hash_grid_to_numpy(grid.coarse)
+    return out

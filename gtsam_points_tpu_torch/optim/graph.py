@@ -1,9 +1,12 @@
 """Factor graph container and its dense linearization.
 
 Port of `FactorGraph` (correspondences, linearize_frozen, linearize_full) and
-`retract` in gtsam_points_tpu/optim/graph.py, for the factors this port has:
+`retract` in gtsam_points_tpu/optim/graph.py, for two kinds of factor:
 matching factors that cache correspondences (`correspondences` +
-`linearize_corr`). Other factor kinds raise until they are ported.
+`linearize_corr`), and factors without a correspondence cache, of one key or
+two (`linearize_with_error_fn`, or `linearize` + `error`). Factors that add
+themselves to the system (`add_to_system`) or span more keys
+(`multi_linearize`) raise until they are ported.
 """
 
 from __future__ import annotations
@@ -50,11 +53,22 @@ class FactorGraph:
         err = poses.new_zeros(())
         err_fns = []
         for fi, f in enumerate(self.factors):
-            if not _is_matching(f):
+            if _is_matching(f):
+                fcorr = corr[fi] if corr is not None and corr[fi] is not None else f.correspondences(poses)
+                lin, efn = f.linearize_corr(poses, fcorr)
+            elif hasattr(f, "add_to_system") or hasattr(f, "multi_linearize"):
                 raise NotImplementedError(f"{type(f).__name__} is not ported yet")
-            fcorr = corr[fi] if corr is not None and corr[fi] is not None else f.correspondences(poses)
-            lin, efn = f.linearize_corr(poses, fcorr)
+            elif hasattr(f, "linearize_with_error_fn"):
+                lin, efn = f.linearize_with_error_fn(poses)
+            else:
+                lin, efn = f.linearize(poses), f.error
             err_fns.append(efn)
+            if len(f.keys) == 1:
+                (k,) = f.keys
+                A[k, k] += lin.H_tt
+                b[k] += lin.b_t
+                err = err + lin.error
+                continue
             t, s = f.keys
             if t >= 0:
                 A[t, t] += lin.H_tt

@@ -20,6 +20,10 @@ iteration, the finite guard) is one CUDA graph, captured at the first step
 and replayed once a step with no host read; the gate and the insert stay
 eager. `odometry_step` is the eager step, the counterpart of the un-jitted
 reference function.
+
+`frame_to_frame_step` is the GICP frame-to-frame step: the new frame
+registered against the previous one through a unary `GICPFactor` (K3),
+eagerly through `optimize_lm`.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from gtsam_points_tpu_torch._device import DeviceLike, check_on, resolve_device
+from gtsam_points_tpu_torch.factors.gicp import GICPFactor
 from gtsam_points_tpu_torch.factors.vgicp import VGICPClustersFactor, VGICPFactor
 from gtsam_points_tpu_torch.ops import fused_linearize
+from gtsam_points_tpu_torch.ops.hash_grid import HashGrid
 from gtsam_points_tpu_torch.ops.voxelmap import (
     GaussianVoxelMap,
     empty_voxelmap,
@@ -286,3 +292,35 @@ def make_odometry_stepper(params: OdometryParams, donate: bool = True, *, device
         return _insert(state, frame, params, T_new, T_delta, res, clusters)
 
     return step
+
+
+class FrameToFrameState(NamedTuple):
+    prev: Frame
+    prev_grid_points: torch.Tensor  # as the reference keeps it; the grid rides with the factor
+    T_world: torch.Tensor
+    T_delta: torch.Tensor
+
+
+def frame_to_frame_step(prev_frame: Frame, prev_grid: HashGrid, T_world: torch.Tensor, T_delta: torch.Tensor,
+                        max_iterations: int, frame: Frame):
+    """GICP frame-to-frame odometry step: registers `frame` against
+    `prev_frame` (with its prebuilt grid) from the constant-velocity
+    prediction `T_delta` -> (T_world_new, T_delta_new, error). Both frames
+    need covariances and lie on one device, which the step runs on; the LM
+    reads `done` from the device once an iteration."""
+    check_on(frame.device, prev_frame.points, prev_grid.cell_records, T_world, T_delta)
+    factor = GICPFactor(
+        target=prev_frame,
+        source=frame,
+        grid=prev_grid,
+        fixed_target_pose=torch.eye(4, dtype=torch.float32, device=frame.device),
+        target_key=-1,
+        source_key=0,
+        max_corr_dist=2.0,
+        num_neighbor_cells=27,
+        max_points_per_cell=prev_grid.points_per_cell,
+    )
+    graph = FactorGraph([factor], num_poses=1)
+    res = optimize_lm(graph, T_delta[None], LMParams(max_iterations=max_iterations, max_inner_iterations=5))
+    delta = torch.where(torch.all(torch.isfinite(res.poses[0])), res.poses[0], T_delta)
+    return T_world @ delta, delta, res.error

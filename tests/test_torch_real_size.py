@@ -58,6 +58,23 @@ _RAD, the per-init bounds of its cluster pyramid phase):
 As a test it registers from the first init that no order moves, holds the
 port's pose to the JAX pose and the JAX pose to the one chip_smoke.py keeps.
 
+Two-scan path (`--gicp-pairs N`, `--gicp-steps K`, `--gicp-orders M`):
+chip_smoke.py's phases 21-22 on the cluster phases' scene, every scan with
+kNN normals and covariances (k = 10, grid leaf 1.0). Pairs: PriorFactor
+(eye, 1e6) and a binary GICP, ICP or ICP point-to-plane factor (max corr
+2.0) from N starts T_rel @ se3_exp(uniform(-0.1, 0.1, 6)), RandomState(2),
+through optimize_lm on two poses; steps: K GICP frame-to-frame steps with
+constant velocity. Both packages run; the report prints the JAX poses 1,
+the JAX deltas and the JAX ATE in the form chip_smoke.py keeps them, and
+with M orders the JAX package alone reruns both with the scans' points in
+M other orders and prints each init's and step's largest shift (the
+per-pose bounds of phases 21-22):
+
+    JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --gicp-pairs 8 --gicp-steps 24 --gicp-orders 6
+
+As a test it registers the first init with GICP, holds the port's pose to
+the JAX pose and the JAX pose to the one chip_smoke.py keeps.
+
 Order shift: the port alone builds the target's pyramid from the same
 points in other orders, so only the order of the moment sums changes, and
 registers from the eight inits again. The largest pose shift (1.767e-3 m
@@ -83,7 +100,14 @@ if ROOT not in sys.path:  # run as a script from the root of a checkout
 
 import jax  # noqa: E402
 
+from gtsam_points_tpu.factors import PriorFactor as JPrior  # noqa: E402
+from gtsam_points_tpu.factors import make_gicp_factor as jgicp  # noqa: E402
+from gtsam_points_tpu.factors import make_icp_factor as jicp  # noqa: E402
+from gtsam_points_tpu.ops.features import estimate_normals_covs as jfeatures  # noqa: E402
 from gtsam_points_tpu.ops.features import estimate_normals_covs_moments as jcovs  # noqa: E402
+from gtsam_points_tpu.ops.hash_grid import build_hash_grid as jgrid  # noqa: E402
+from gtsam_points_tpu.optim import FactorGraph as JGraph  # noqa: E402
+from gtsam_points_tpu.optim import optimize_lm as jlm  # noqa: E402
 from gtsam_points_tpu.pipelines import odometry as jodo  # noqa: E402
 from gtsam_points_tpu.registration import cluster as jcl  # noqa: E402
 from gtsam_points_tpu.registration import pyramid as jpyr  # noqa: E402
@@ -91,7 +115,14 @@ from gtsam_points_tpu.types.frame import make_frame as jmake  # noqa: E402
 from gtsam_points_tpu.types.frame import transform_frame as jtransform  # noqa: E402
 from gtsam_points_tpu.utils import se3 as jse3  # noqa: E402
 from gtsam_points_tpu.utils.synthetic import ring_scans, ring_trajectory, ring_world  # noqa: E402
+from gtsam_points_tpu_torch.factors import PriorFactor as TPrior  # noqa: E402
+from gtsam_points_tpu_torch.factors import make_gicp_factor as tgicp  # noqa: E402
+from gtsam_points_tpu_torch.factors import make_icp_factor as ticp  # noqa: E402
+from gtsam_points_tpu_torch.ops.features import estimate_normals_covs as tfeatures  # noqa: E402
 from gtsam_points_tpu_torch.ops.features import estimate_normals_covs_moments as tcovs  # noqa: E402
+from gtsam_points_tpu_torch.ops.hash_grid import build_hash_grid as tgrid  # noqa: E402
+from gtsam_points_tpu_torch.optim import FactorGraph as TGraph  # noqa: E402
+from gtsam_points_tpu_torch.optim import optimize_lm as tlm  # noqa: E402
 from gtsam_points_tpu_torch.pipelines import odometry as todo  # noqa: E402
 from gtsam_points_tpu_torch.registration import cluster as tcl  # noqa: E402
 from gtsam_points_tpu_torch.registration import pyramid as tpyr  # noqa: E402
@@ -503,6 +534,210 @@ def cluster_odometry_summary(r: dict) -> str:
     )
 
 
+def _gicp_frames(scans, package: str):
+    """Each scan with kNN normals and covariances, as the two-scan path and
+    the frame-to-frame step preprocess it."""
+    if package == "jax":
+        prep = jax.jit(lambda f: jfeatures(f, k=10, grid_leaf=1.0))
+        return [prep(jmake(s)) for s in scans]
+    return [tfeatures(tmake(s, device="cpu"), k=10, grid_leaf=1.0) for s in scans]
+
+
+def _pair_graph(package: str, kind: str, target, source):
+    """PriorFactor(eye, GICP_PRIOR_WEIGHT, key=0) + the binary factor 0 -> 1."""
+    if package == "jax":
+        make, prior, graph = (jgicp if kind == "gicp" else jicp), JPrior, JGraph(num_poses=2)
+        eye, w = jax.numpy.eye(4), jax.numpy.full((6,), chip_smoke.GICP_PRIOR_WEIGHT)
+    else:
+        make, prior, graph = (tgicp if kind == "gicp" else ticp), TPrior, TGraph(num_poses=2)
+        eye, w = torch.eye(4), torch.full((6,), chip_smoke.GICP_PRIOR_WEIGHT)
+    kw = {} if kind == "gicp" else {"point_to_plane": kind == "icp_plane"}
+    graph.add(prior(prior=eye, weights=w, key=0))
+    graph.add(make(0, 1, target, source, max_corr_dist=chip_smoke.GICP_MAX_CORR, **kw))
+    return graph
+
+
+def gicp_pair_inputs(inits):
+    """chip_smoke.py's two-scan scene -> (scans 0 and 1, true relative pose,
+    the start poses [len(inits), 2, 4, 4] of these init indices)."""
+    T_true, scans = cluster_scans(2)
+    T_rel = (np.linalg.inv(T_true[0]) @ T_true[1]).astype(np.float32)
+    xis = np.random.RandomState(chip_smoke.GICP_SEED).uniform(
+        -0.1, 0.1, (chip_smoke.GICP_INITS, 6)).astype(np.float32)[list(inits)]
+    P0 = np.stack([np.stack([np.eye(4, dtype=np.float32), T_rel @ tse3.se3_exp(torch.from_numpy(xi)).numpy()])
+                   for xi in xis])
+    return scans, T_rel, P0
+
+
+def _pair_poses(package: str, scans, P0, kinds=chip_smoke.GICP_KINDS) -> dict:
+    """kind -> the registered pose 1 [len(P0), 4, 4] and the LM iterations."""
+    target, source = _gicp_frames(scans, package)
+    out = {}
+    for kind in kinds:
+        graph = _pair_graph(package, kind, target, source)
+        if package == "jax":
+            run = jax.jit(lambda p, g=graph: jlm(g, p))
+            res = [run(p) for p in P0]
+            out[kind] = (np.stack([np.asarray(r.poses[1]) for r in res]), [int(r.status.num_iterations) for r in res])
+        else:
+            res = [tlm(graph, torch.from_numpy(p)) for p in P0]
+            out[kind] = (np.stack([r.poses[1].numpy() for r in res]), [int(r.status.num_iterations) for r in res])
+    return out
+
+
+def compare_gicp_pairs(inits, kinds=chip_smoke.GICP_KINDS) -> dict:
+    """The two-scan registration in both packages from the inits of these
+    indices, each factor kind -> per-pose gaps of pose 1, errors against
+    the truth, iterations, the JAX poses, seconds."""
+    scans, T_rel, P0 = gicp_pair_inputs(inits)
+    t0 = time.perf_counter()
+    j = _pair_poses("jax", scans, P0, kinds)
+    t1 = time.perf_counter()
+    t = _pair_poses("torch", scans, P0, kinds)
+    t2 = time.perf_counter()
+    truth = torch.from_numpy(T_rel).expand(len(P0), 4, 4)
+    r = {"inits": list(inits), "seconds_jax": t1 - t0, "seconds_torch": t2 - t1}
+    for kind in kinds:
+        rot, trans = tse3.pose_error(torch.from_numpy(j[kind][0]), torch.from_numpy(t[kind][0]))
+        jrot, jtrans = tse3.pose_error(truth, torch.from_numpy(j[kind][0]))
+        r[kind] = {"gap_m": trans.tolist(), "gap_rad": rot.tolist(), "truth_jax_m": jtrans.tolist(),
+                   "truth_jax_rad": jrot.tolist(), "iters_jax": j[kind][1], "iters_torch": t[kind][1],
+                   "jax_poses": _pose_rows(j[kind][0])}
+    return r
+
+
+def gicp_pair_summary(r: dict) -> str:
+    return "; ".join(
+        f"{kind} pairs, {len(r['inits'])} inits: max gap {max(r[kind]['gap_m']):.6e} m "
+        f"{max(r[kind]['gap_rad']):.6e} rad, jax against the truth max {max(r[kind]['truth_jax_m']):.6f} m "
+        f"{max(r[kind]['truth_jax_rad']):.6f} rad, iterations jax {r[kind]['iters_jax']} port {r[kind]['iters_torch']}"
+        for kind in chip_smoke.GICP_KINDS if kind in r
+    ) + f"; {r['seconds_jax']:.1f} s / {r['seconds_torch']:.1f} s"
+
+
+def gicp_pair_order_shift(n_inits: int, n_orders: int) -> dict:
+    """The JAX package alone: the two-scan registration again with both
+    scans' points in `n_orders` other orders (RandomState(400 + i)
+    permutations: other kNN candidates survive a full cell, the sums run in
+    another order) -> per kind the shift of each init's pose 1, per order."""
+    scans, _, P0 = gicp_pair_inputs(range(n_inits))
+    base = _pair_poses("jax", scans, P0)
+    r = {"inits": n_inits, "orders": n_orders}
+    for kind in chip_smoke.GICP_KINDS:
+        r[kind] = {"shift_m": [], "shift_rad": []}
+    for i in range(n_orders):
+        rng = np.random.RandomState(400 + i)
+        other = _pair_poses("jax", [s[rng.permutation(len(s))] for s in scans], P0)
+        for kind in chip_smoke.GICP_KINDS:
+            rot, trans = tse3.pose_error(torch.from_numpy(base[kind][0]), torch.from_numpy(other[kind][0]))
+            r[kind]["shift_m"].append(trans.tolist())
+            r[kind]["shift_rad"].append(rot.tolist())
+    return r
+
+
+def _print_gicp_shifts(r: dict, name: str, kinds) -> None:
+    """Each init's (or step's) largest shift over the orders, as chip_smoke.py
+    keeps them: a dict by factor kind, or for the steps one list."""
+    for unit in ("m", "rad"):
+        worst = {kind: ", ".join(f"{x:.3e}" for x in np.asarray(r[kind][f"shift_{unit}"]).max(0)) for kind in kinds}
+        if kinds == ["steps"]:
+            print(f"{name}_{unit.upper()} = [{worst['steps']}]", flush=True)
+            continue
+        print(f"{name}_{unit.upper()} = {{", flush=True)
+        for kind in kinds:
+            print(f'    "{kind}": [{worst[kind]}],', flush=True)
+        print("}", flush=True)
+
+
+def gicp_order_summary(r: dict, kinds) -> str:
+    return "; ".join(
+        f"{kind}, JAX against JAX in {r['orders']} other orders: max shift {np.max(r[kind]['shift_m']):.6e} m "
+        f"{np.max(r[kind]['shift_rad']):.6e} rad, entries over 5e-4 m {int((np.asarray(r[kind]['shift_m']).max(0) > 5e-4).sum())}"
+        for kind in kinds
+    )
+
+
+def _frame_to_frame(package: str, scans, motions):
+    """GICP frame-to-frame odometry over the scans: each step's prediction is
+    its entry of `motions`, or with `motions` None the previous step's delta
+    (constant velocity from rest) -> (deltas, world poses)."""
+    frames = _gicp_frames(scans, package)
+    if package == "jax":
+        grid = jax.jit(lambda f: jgrid(f.points, f.mask, 1.0))
+        T_world, T_delta = np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32)
+        step = jodo.frame_to_frame_step
+    else:
+        grid = lambda f: tgrid(f.points, f.mask, 1.0)  # noqa: E731
+        T_world, T_delta = torch.eye(4), torch.eye(4)
+        step = todo.frame_to_frame_step
+    deltas, world = [], [np.eye(4, dtype=np.float32)]
+    for i, (prev, frame) in enumerate(zip(frames[:-1], frames[1:])):
+        pred = T_delta if motions is None else (motions[i] if package == "jax" else torch.from_numpy(motions[i]))
+        T_world, T_delta, _ = step(prev, grid(prev), T_world, pred, chip_smoke.GICP_STEP_ITERATIONS, frame)
+        deltas.append(np.asarray(T_delta))
+        world.append(np.asarray(T_world))
+    return np.stack(deltas), world
+
+
+def gicp_step_inputs(steps: int):
+    T_true, scans = cluster_scans(steps + 1)
+    motions = [(np.linalg.inv(a) @ b).astype(np.float32) for a, b in zip(T_true[:-1], T_true[1:])]
+    return T_true, scans, motions
+
+
+def compare_gicp_steps(steps: int) -> dict:
+    """GICP frame-to-frame odometry over `steps` steps: both packages with
+    constant velocity (each step predicted by the previous step's delta,
+    from rest), and the JAX package with the true motion as each step's
+    prediction -> per-step delta gaps, ATEs, the JAX deltas, seconds."""
+    T_true, scans, motions = gicp_step_inputs(steps)
+    t0 = time.perf_counter()
+    jd, jw = _frame_to_frame("jax", scans, None)
+    t1 = time.perf_counter()
+    td, tw = _frame_to_frame("torch", scans, None)
+    t2 = time.perf_counter()
+    _, mw = _frame_to_frame("jax", scans, motions)
+    rot, trans = tse3.pose_error(torch.from_numpy(jd), torch.from_numpy(td))
+    return {
+        "steps": steps,
+        "gap_m": trans.tolist(),
+        "gap_rad": rot.tolist(),
+        "ate_jax_m": _ate(T_true, jw),
+        "ate_torch_m": _ate(T_true, tw),
+        "ate_jax_true_motion_m": _ate(T_true, mw),
+        "jax_deltas": _pose_rows(jd),
+        "seconds_jax": t1 - t0,
+        "seconds_torch": t2 - t1,
+    }
+
+
+def gicp_step_summary(r: dict) -> str:
+    aj, at, am = (np.asarray(r[k]) for k in ("ate_jax_m", "ate_torch_m", "ate_jax_true_motion_m"))
+    return (
+        f"frame-to-frame, {r['steps']} steps with constant velocity: max per-step delta gap "
+        f"{max(r['gap_m']):.6e} m {max(r['gap_rad']):.6e} rad; ATE jax mean {aj.mean():.6f} max {aj.max():.6f} m "
+        f"(as chip_smoke.GICP_ATE_JAX_MEAN_M, GICP_ATE_JAX_MAX_M), port mean {at.mean():.6f} max {at.max():.6f} m; "
+        f"jax with the true motion as prediction: ATE mean {am.mean():.6f} max {am.max():.6f} m; "
+        f"{r['seconds_jax']:.1f} s / {r['seconds_torch']:.1f} s"
+    )
+
+
+def gicp_step_order_shift(steps: int, n_orders: int) -> dict:
+    """The JAX package alone, with constant velocity: every scan's points in
+    `n_orders` other orders (RandomState(500 + i)) -> per order the shift
+    of each step's delta."""
+    _, scans, _ = gicp_step_inputs(steps)
+    base, _ = _frame_to_frame("jax", scans, None)
+    r = {"orders": n_orders, "steps": {"shift_m": [], "shift_rad": []}}
+    for i in range(n_orders):
+        rng = np.random.RandomState(500 + i)
+        other, _ = _frame_to_frame("jax", [s[rng.permutation(len(s))] for s in scans], None)
+        rot, trans = tse3.pose_error(torch.from_numpy(base), torch.from_numpy(other))
+        r["steps"]["shift_m"].append(trans.tolist())
+        r["steps"]["shift_rad"].append(rot.tolist())
+    return r
+
+
 def order_shift(n_orders: int) -> dict:
     """The port alone, on the CPU: the target scan's points in `n_orders`
     other orders (RandomState(100 + i) permutations) give the same voxels
@@ -589,6 +824,19 @@ def test_real_size_cluster_pyramid_matches_jax():
     assert trans < KEPT_POSE_TOL and rot < KEPT_POSE_TOL, (trans, rot)
 
 
+def test_real_size_gicp_pair_matches_jax():
+    """The first init of chip_smoke.py's two-scan GICP registration: the
+    port's pose 1 within POSE_TOL of JAX's, and JAX's within KEPT_POSE_TOL
+    of the one chip_smoke.py keeps."""
+    torch.set_num_threads(1)
+    r = compare_gicp_pairs([0], kinds=("gicp",))
+    print(gicp_pair_summary(r))
+    assert max(r["gicp"]["gap_m"]) < POSE_TOL_M and max(r["gicp"]["gap_rad"]) < POSE_TOL_RAD, r["gicp"]
+    assert r["gicp"]["iters_jax"] == r["gicp"]["iters_torch"]
+    trans, rot = _kept_gap(chip_smoke.GICP_PAIR_JAX_POSES["gicp"][:1], r["gicp"]["jax_poses"])
+    assert trans < KEPT_POSE_TOL and rot < KEPT_POSE_TOL, (trans, rot)
+
+
 def test_real_size_first_steps_match_jax():
     torch.set_num_threads(1)
     r = compare(TEST_STEPS, with_prior=True)
@@ -614,6 +862,15 @@ def main() -> int:
     parser.add_argument("--cluster-orders", type=int, default=0,
                         help="other point orders of both scans for the JAX cluster pyramid's order shift, "
                              "over --cluster-inits inits (0: none)")
+    parser.add_argument("--gicp-pairs", type=int, default=0,
+                        help="two-scan GICP / ICP / ICP point-to-plane registrations from this many inits, both "
+                             "packages (0: none)")
+    parser.add_argument("--gicp-steps", type=int, default=0,
+                        help="GICP frame-to-frame steps, both packages (0: none)")
+    parser.add_argument("--gicp-orders", type=int, default=0,
+                        help="other point orders of the scans for the JAX two-scan registrations' and "
+                             "frame-to-frame steps' order shift, over --gicp-pairs inits and --gicp-steps "
+                             "steps (0: none)")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -644,6 +901,31 @@ def main() -> int:
     if args.cluster_steps:
         r = compare_cluster_odometry(args.cluster_steps)
         print(cluster_odometry_summary(r), flush=True)
+        report.append(r)
+    if args.gicp_pairs:
+        r = compare_gicp_pairs(range(args.gicp_pairs))
+        print(gicp_pair_summary(r), flush=True)
+        print("JAX poses 1 (top three rows, row-major), as chip_smoke.GICP_PAIR_JAX_POSES:")
+        for kind in chip_smoke.GICP_KINDS:
+            print(f'    "{kind}": [')
+            for p in r[kind]["jax_poses"]:
+                print("        [" + ", ".join(np.format_float_positional(np.float32(x), unique=True) for x in p) + "],")
+            print("    ],", flush=True)
+        report.append(r)
+    if args.gicp_steps:
+        r = compare_gicp_steps(args.gicp_steps)
+        print(gicp_step_summary(r), flush=True)
+        _print_kept("GICP_STEP_JAX_DELTAS", r["jax_deltas"])
+        report.append(r)
+    if args.gicp_orders and args.gicp_pairs:
+        r = gicp_pair_order_shift(args.gicp_pairs, args.gicp_orders)
+        print(gicp_order_summary(r, chip_smoke.GICP_KINDS), flush=True)
+        _print_gicp_shifts(r, "GICP_PAIR_ORDER_SHIFT", chip_smoke.GICP_KINDS)
+        report.append(r)
+    if args.gicp_orders and args.gicp_steps:
+        r = gicp_step_order_shift(args.gicp_steps, args.gicp_orders)
+        print(gicp_order_summary(r, ["steps"]), flush=True)
+        _print_gicp_shifts(r, "GICP_STEP_ORDER_SHIFT", ["steps"])
         report.append(r)
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
