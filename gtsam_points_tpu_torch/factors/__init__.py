@@ -7,7 +7,13 @@ from gtsam_points_tpu_torch.factors.vgicp import (
     make_vgicp_clusters_factor,
     make_vgicp_factor,
 )
-from gtsam_points_tpu_torch.factors.pose_factors import PriorFactor
+from gtsam_points_tpu_torch.factors.pose_factors import BetweenFactor, LinearDampingFactor, PriorFactor
+from gtsam_points_tpu_torch.factors.batch import VGICPFactorBatch, make_vgicp_factor_batch
+from gtsam_points_tpu_torch.factors.misc_factors import (
+    Pose3CalibFactor,
+    Pose3InterpolationFactor,
+    RotateVector3Factor,
+)
 
 __all__ = [
     "Linearized",
@@ -20,4 +26,11 @@ __all__ = [
     "make_vgicp_factor",
     "make_vgicp_clusters_factor",
     "PriorFactor",
+    "BetweenFactor",
+    "LinearDampingFactor",
+    "VGICPFactorBatch",
+    "make_vgicp_factor_batch",
+    "Pose3CalibFactor",
+    "Pose3InterpolationFactor",
+    "RotateVector3Factor",
 ]

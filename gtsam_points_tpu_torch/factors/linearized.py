@@ -117,3 +117,22 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
         dim=-2,
     )
     return adj * inv_det[..., None, None]
+
+
+def add_blocks(A: torch.Tensor, b: torch.Tensor, keys, lin) -> torch.Tensor:
+    """Add a one- or two-key system to A [P, P, 6, 6], b [P, 6] in place (a
+    target key < 0 is the fixed target: its blocks are dropped) -> its error."""
+    if len(keys) == 1:
+        (k,) = keys
+        A[k, k] += lin.H_tt
+        b[k] += lin.b_t
+        return lin.error
+    t, s = keys
+    if t >= 0:
+        A[t, t] += lin.H_tt
+        A[t, s] += lin.H_ts
+        A[s, t] += lin.H_ts.T
+        b[t] += lin.b_t
+    A[s, s] += lin.H_ss
+    b[s] += lin.b_s
+    return lin.error

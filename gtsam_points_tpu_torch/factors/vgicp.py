@@ -18,6 +18,7 @@ from typing import TYPE_CHECKING, Optional
 import torch
 
 from gtsam_points_tpu_torch.factors.base import MatchingFactorMixin, relative_pose
+from gtsam_points_tpu_torch.factors.gicp import linearize_k3
 from gtsam_points_tpu_torch.ops import fused_linearize, planar
 from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, build_voxelmap, lookup_fetch_planar
 from gtsam_points_tpu_torch.types.frame import Frame
@@ -59,17 +60,16 @@ class VGICPFactor(MatchingFactorMixin):
             fused = planar.sym_add_eye(C6, 1e-3)
         return found, mu, planar.sym_inv(fused)
 
+    def k3_inputs(self, poses: torch.Tensor, corr):
+        """K3's inputs on `corr` at `poses` -> (p [3, N], mu [3, N], W6 [6, N],
+        mask [N], delta [4, 4])."""
+        found, mu, W6 = corr
+        return self._source_planar[0], mu, W6, found, relative_pose(self, poses)
+
     def linearize_corr(self, poses: torch.Tensor, corr):
         """Linearization on a frozen correspondence set (K3), and the error
         function that scores candidate poses on the same set."""
-        found, mu, W6 = corr
-        pts_p, _ = self._source_planar
-        lin = fused_linearize.linearize_fused(pts_p, mu, W6, found, relative_pose(self, poses))
-
-        def err_fn(new_poses):
-            return fused_linearize.error_fused(pts_p, mu, W6, found, relative_pose(self, new_poses))
-
-        return lin, err_fn
+        return linearize_k3(self, poses, corr)
 
     def error(self, poses: torch.Tensor) -> torch.Tensor:
         found, mu, W6 = self.correspondences(poses)

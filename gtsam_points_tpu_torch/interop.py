@@ -1,12 +1,14 @@
 """Carry state across from the JAX package as numpy arrays.
 
 The system has no weights: its state is the voxel map, the frames, a
-scan's source clusters and a frame's hash grid. These functions take the
-numpy arrays of a JAX `GaussianVoxelMap` (its seven fields), of a `Frame`
-(with its normals and covariances), of a `SourceClusters` (its four fields)
-and of a `HashGrid` (its nine arrays and its coarse level), and build the
+scan's source clusters, a frame's hash grid, a pose graph's edges and a
+VGICP factor set. These functions take the numpy arrays of a JAX
+`GaussianVoxelMap` (its seven fields), of a `Frame` (with its normals and
+covariances), of a `SourceClusters` (its four fields), of a `HashGrid` (its
+nine arrays and its coarse level), of a `PoseGraphEdges` and of a
+`VGICPFactorBatch` (its stacked maps and frames and its keys), and build the
 port's state from them bit for bit, so both packages can start from the
-same map or search the same grid.
+same map, search the same grid or optimize the same graph.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import numpy as np
 import torch
 
 from gtsam_points_tpu_torch._device import DeviceLike, resolve_device
+from gtsam_points_tpu_torch.factors.batch import VGICPFactorBatch
 from gtsam_points_tpu_torch.ops.hash_grid import HashGrid
 from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap
+from gtsam_points_tpu_torch.optim.sparse import PoseGraphEdges
 from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
 
@@ -42,6 +46,17 @@ _GRID_DTYPES = {
     "num_cells": np.int32,
     "hash_index": np.int32,
     "neighbor_rows": np.int32,
+}
+_POSE_GRAPH_DTYPES = {
+    "measured": np.float32,
+    "weights": np.float32,
+    "t_idx": np.int32,
+    "s_idx": np.int32,
+    "prior_T": np.float32,
+    "prior_w": np.float32,
+    "prior_idx": np.int32,
+    "info": np.float32,
+    "prior_info": np.float32,
 }
 _CLUSTER_DTYPES = {"pts_p": np.float32, "covs6": np.float32, "weight": np.float32, "mask": bool}
 
@@ -108,3 +123,26 @@ def hash_grid_to_numpy(grid) -> dict:
     out = {k: _numpy(getattr(grid, k)) for k in _GRID_DTYPES}
     out["coarse"] = None if grid.coarse is None else hash_grid_to_numpy(grid.coarse)
     return out
+
+
+def pose_graph_from_numpy(arrays: Mapping, device: DeviceLike = None) -> PoseGraphEdges:
+    """`arrays`: the fields of a JAX `PoseGraphEdges` (measured, weights,
+    t_idx, s_idx, prior_T, prior_w, prior_idx, and info and prior_info,
+    None or absent when the graph has none)."""
+    dev = resolve_device(device)
+    return PoseGraphEdges(**{k: None if arrays.get(k) is None else _tensor(arrays[k], dt, dev)
+                             for k, dt in _POSE_GRAPH_DTYPES.items()})
+
+
+def vgicp_batch_from_numpy(arrays: Mapping, device: DeviceLike = None) -> VGICPFactorBatch:
+    """`arrays`: `voxelmaps` (the seven fields of a JAX `GaussianVoxelMap`,
+    stacked [F, ...]), `sources` (a JAX `Frame`'s fields, stacked),
+    `target_keys`, `source_keys` [F] and `min_voxel_points`."""
+    dev = resolve_device(device)
+    return VGICPFactorBatch(
+        voxelmaps=voxelmap_from_numpy(arrays["voxelmaps"], dev),
+        sources=frame_from_numpy(arrays["sources"], dev),
+        target_keys=_tensor(arrays["target_keys"], np.int32, dev),
+        source_keys=_tensor(arrays["source_keys"], np.int32, dev),
+        min_voxel_points=float(arrays["min_voxel_points"]),
+    )

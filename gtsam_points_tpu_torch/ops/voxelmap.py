@@ -190,6 +190,16 @@ def _run_sum(rows: torch.Tensor, slot: torch.Tensor, size: int) -> torch.Tensor:
     return torch.segment_reduce(rows, "sum", offsets=offsets, axis=0, unsafe=True)
 
 
+def scatter_sum(rows: torch.Tensor, slot: torch.Tensor, size: int) -> torch.Tensor:
+    """`index_add_` in a fixed order: rows [M, ...] summed into [size, ...]
+    by slot [M], in any order; each slot sums its rows in their input order
+    (a stable sort, then `_run_sum`), on every device. Rows whose slot is
+    `size` or more are dropped."""
+    order = torch.argsort(slot, stable=True)
+    flat = rows.reshape(rows.shape[0], -1)[order]
+    return _run_sum(flat, slot[order], size).reshape((size,) + rows.shape[1:])
+
+
 def build_probe_table(keys: torch.Tensor, moments: torch.Tensor) -> torch.Tensor:
     """Claim bucket slots for every valid key (first 8 per bucket in stable
     sorted order; overflow dropped) and write complete records."""
@@ -232,6 +242,22 @@ def lookup_rows(vmap: GaussianVoxelMap, query_keys: torch.Tensor):
     """-> (row [..], found [..]) for packed voxel keys."""
     row, found, _, _ = table_probe(vmap.table, query_keys)
     return row, found
+
+
+def lookup_fetch(vmap: GaussianVoxelMap, points: torch.Tensor, mask: torch.Tensor):
+    """Probe + record fetch: points [N, 3] -> (found [N], count [N],
+    mean [N, 3], cov [N, 3, 3])."""
+    keys = vk.point_keys(points, mask, vmap.leaf)
+    _, found, pick, _ = table_probe(vmap.table, keys)
+    rows = torch.cat([pick[..., 2:13], pick.new_zeros(pick.shape[:-1] + (_MOM_LANES - 11,))], dim=-1)
+    return found & mask, rows[..., 0], finalize_mean(rows), finalize_cov(rows)
+
+
+def lookup_voxels(vmap: GaussianVoxelMap, points: torch.Tensor, mask: torch.Tensor):
+    """Voxel lookup of points [N, 3] -> (map row [N], found [N])."""
+    keys = vk.point_keys(points, mask, vmap.leaf)
+    row, found, _, _ = table_probe(vmap.table, keys)
+    return row, found & mask
 
 
 def lookup_fetch_planar(vmap: GaussianVoxelMap, moved_p: torch.Tensor, mask: torch.Tensor):

@@ -1,12 +1,12 @@
 """Factor graph container and its dense linearization.
 
 Port of `FactorGraph` (correspondences, linearize_frozen, linearize_full) and
-`retract` in gtsam_points_tpu/optim/graph.py, for two kinds of factor:
-matching factors that cache correspondences (`correspondences` +
-`linearize_corr`), and factors without a correspondence cache, of one key or
-two (`linearize_with_error_fn`, or `linearize` + `error`). Factors that add
-themselves to the system (`add_to_system`) or span more keys
-(`multi_linearize`) raise until they are ported.
+`retract` in gtsam_points_tpu/optim/graph.py, with the reference's order of
+dispatch: matching factors that cache correspondences (`correspondences` +
+`linearize_corr`), factor sets that add themselves to the system
+(`add_to_system`, factors/batch.py), factors over any number of keys
+(`multi_linearize`, factors/misc_factors.py), and factors of one key or two
+(`linearize_with_error_fn`, or `linearize` + `error`).
 """
 
 from __future__ import annotations
@@ -15,11 +15,23 @@ from typing import List, Sequence
 
 import torch
 
+from gtsam_points_tpu_torch.factors.linearized import add_blocks
 from gtsam_points_tpu_torch.utils import se3
 
 
 def _is_matching(f) -> bool:
     return hasattr(f, "correspondences") and hasattr(f, "linearize_corr")
+
+
+def _add_multi(A: torch.Tensor, b: torch.Tensor, keys, Hm: torch.Tensor, bm: torch.Tensor) -> None:
+    """Add a K-key system H [6K, 6K], b [6K] to A, b in place."""
+    k = len(keys)
+    Hm = Hm.reshape(k, 6, k, 6)
+    bm = bm.reshape(k, 6)
+    for i, ki in enumerate(keys):
+        b[ki] += bm[i]
+        for j, kj in enumerate(keys):
+            A[ki, kj] += Hm[i, :, j, :]
 
 
 class FactorGraph:
@@ -56,28 +68,21 @@ class FactorGraph:
             if _is_matching(f):
                 fcorr = corr[fi] if corr is not None and corr[fi] is not None else f.correspondences(poses)
                 lin, efn = f.linearize_corr(poses, fcorr)
-            elif hasattr(f, "add_to_system") or hasattr(f, "multi_linearize"):
-                raise NotImplementedError(f"{type(f).__name__} is not ported yet")
-            elif hasattr(f, "linearize_with_error_fn"):
-                lin, efn = f.linearize_with_error_fn(poses)
+                errf = add_blocks(A, b, f.keys, lin)
+            elif hasattr(f, "add_to_system"):
+                A, b, errf, efn = f.add_to_system(A, b, poses)
+            elif hasattr(f, "multi_linearize"):
+                Hm, bm, errf = f.multi_linearize(poses)
+                _add_multi(A, b, f.keys, Hm, bm)
+                efn = f.error
             else:
-                lin, efn = f.linearize(poses), f.error
+                if hasattr(f, "linearize_with_error_fn"):
+                    lin, efn = f.linearize_with_error_fn(poses)
+                else:
+                    lin, efn = f.linearize(poses), f.error
+                errf = add_blocks(A, b, f.keys, lin)
             err_fns.append(efn)
-            if len(f.keys) == 1:
-                (k,) = f.keys
-                A[k, k] += lin.H_tt
-                b[k] += lin.b_t
-                err = err + lin.error
-                continue
-            t, s = f.keys
-            if t >= 0:
-                A[t, t] += lin.H_tt
-                A[t, s] += lin.H_ts
-                A[s, t] += lin.H_ts.T
-                b[t] += lin.b_t
-            A[s, s] += lin.H_ss
-            b[s] += lin.b_s
-            err = err + lin.error
+            err = err + errf
         A_full = A.permute(0, 2, 1, 3).reshape(6 * p, 6 * p)
 
         def frozen_error(new_poses):

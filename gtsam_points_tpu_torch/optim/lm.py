@@ -272,3 +272,20 @@ def optimize_lm_unrolled(graph: FactorGraph, poses: torch.Tensor, params: Option
     for _ in range(p.max_iterations):
         st = lm_iteration(graph, st, p)
     return lm_result(st)
+
+
+class GNResult(NamedTuple):
+    poses: torch.Tensor
+    error: torch.Tensor
+
+
+def optimize_gn(graph: FactorGraph, poses: torch.Tensor, iterations: int = 10, damping: float = 1e-6) -> GNResult:
+    """Gauss-Newton with a fixed iteration count: each step solves the
+    system damped by `damping` x its diagonal, a non-finite step is 0. Reads
+    nothing from the device."""
+    lam = torch.full((1,), damping, dtype=torch.float32, device=poses.device)
+    for _ in range(iterations):
+        A, b, _ = graph.linearize_full(poses)
+        delta, _ = _solve_damped(A, b, lam, True)
+        poses = retract(poses, delta[0])
+    return GNResult(poses=poses, error=graph.error(poses))

@@ -27,10 +27,20 @@ def skew(v: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _safe_sqrt(theta2: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
+    """sqrt(theta2), with 1 where `small` (the Taylor branches, which never
+    read it): reverse-mode AD of sqrt at 0 gives 0·inf = NaN even through
+    the branch a `torch.where` drops, so `torch.autograd` over an error at
+    zero tangent (`optim.dogleg.gradient_descent`) needs the sqrt kept off
+    0. Where it is read, the value is sqrt(max(theta2, 0)) bit for bit; a
+    python 1.0 keeps it one kernel, as the clamp was."""
+    return torch.sqrt(torch.where(small, 1.0, theta2))
+
+
 def _sinc_coeffs(theta2: torch.Tensor):
     """(sin t / t, (1-cos t)/t^2, (t - sin t)/t^3), Taylor-safe near 0."""
-    theta = torch.sqrt(torch.clamp(theta2, min=0.0))
     small = theta2 < 1e-8
+    theta = _safe_sqrt(theta2, small)
     a_t = 1.0 - theta2 / 6.0
     b_t = 0.5 - theta2 / 24.0
     c_t = 1.0 / 6.0 - theta2 / 120.0
@@ -79,9 +89,9 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
 
 def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     theta2 = torch.sum(w * w, dim=-1)
-    theta = torch.sqrt(torch.clamp(theta2, min=0.0))
-    K = skew(w)
     small = theta2 < 1e-8
+    theta = _safe_sqrt(theta2, small)
+    K = skew(w)
     half = theta * 0.5
     cot_term = torch.where(
         small,
@@ -133,6 +143,29 @@ def rotate_points(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...nj->...ni", T[..., :3, :3], vecs)
 
 
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] -> [..., 6, 6] adjoint in (omega, v) order:
+    Ad(T) = [[R, 0], [[t]x R, R]]."""
+    R = T[..., :3, :3]
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    bottom = torch.cat([skew(T[..., :3, 3]) @ R, R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] in (x, y, z, w) order -> [..., 3, 3] rotation."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q.unbind(-1)
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], dim=-1),
+            torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], dim=-1),
+            torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> quaternion (x, y, z, w), Shepperd's branch selection."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
@@ -152,6 +185,11 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     q3 = torch.stack([(m02 + m20) * inv2s, (m12 + m21) * inv2s, half_s, (m10 - m01) * inv2s], -1)
     q = torch.where(case == 0, q0, torch.where(case == 1, q1, torch.where(case == 2, q2, q3)))
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def pose_from_xyzq(xyzq: torch.Tensor) -> torch.Tensor:
+    """[..., 7] = (x, y, z, qx, qy, qz, qw) -> [..., 4, 4]."""
+    return make_transform(quat_to_rot(xyzq[..., 3:7]), xyzq[..., :3])
 
 
 def pose_error(T_a: torch.Tensor, T_b: torch.Tensor):

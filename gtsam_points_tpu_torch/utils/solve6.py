@@ -1,21 +1,31 @@
 """Unrolled small SPD solve for the registration hot loop.
 
-Port of gtsam_points_tpu/utils/solve6.py: the Cholesky factorisation and both
-substitutions are written out element by element over any batch prefix (the
-LM solves all K damped systems of its lambda ladder at once; the pyramid's
-Gauss-Newton step solves one 6x6 system through `solve6`). Pivots are
-clamped as sqrt(max(s, 1e-30)), so a singular system returns finite numbers
-instead of raising, exactly as the reference does.
+Port of gtsam_points_tpu/utils/solve6.py: up to UNROLL_MAX unknowns the
+Cholesky factorisation and both substitutions are written out element by
+element over any batch prefix (the LM solves all K damped systems of its
+lambda ladder at once; the pyramid's Gauss-Newton step solves one 6x6 system
+through `solve6`). Pivots are clamped as sqrt(max(s, 1e-30)), so a singular
+system returns finite numbers instead of raising, exactly as the reference
+does. Above UNROLL_MAX (more than three poses) the unrolled op count, about
+n³/3 elementwise kernels, stops paying: the reference takes `cho_solve`
+there, and the port `torch.linalg.cholesky_ex` and `torch.cholesky_solve`.
+A factorisation that fails (not positive definite) gives NaN there, as the
+reference's `cho_factor` does, and `cholesky_ex` neither raises nor reads
+its status back to the host.
 """
 
 from __future__ import annotations
 
 import torch
 
+UNROLL_MAX = 18
+
 
 def solve_small(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve H x = b for SPD H [..., n, n], b [..., n] -> x [..., n]."""
     n = H.shape[-1]
+    if n > UNROLL_MAX:
+        return cho_solve(H, b)
     a = [[H[..., i, j] for j in range(n)] for i in range(n)]
     L = [[None] * n for _ in range(n)]
     inv_d = [None] * n
@@ -44,6 +54,15 @@ def solve_small(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             s = s - L[k][i] * x[k]
         x[i] = s * inv_d[i]
     return torch.stack(x, dim=-1)
+
+
+def cho_solve(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve H x = b by a Cholesky factorisation (the reference's
+    `cho_solve(cho_factor(H, lower=True), b)`): H [..., n, n], b [..., n] ->
+    x [..., n], NaN where H is not positive definite."""
+    L, info = torch.linalg.cholesky_ex(H)
+    x = torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+    return torch.where((info == 0).unsqueeze(-1), x, float("nan"))
 
 
 def solve6(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """PyTorch port vs the JAX package: the two-scan registration path.
 
 GICP, ICP point to point and ICP point to plane factors, the PriorFactor,
-the graph's branch for factors without a correspondence cache, and the LM
-on two poses (a 12x12 system), as in the reference's basic_scan_matching:
+the graph's branch for factors without a correspondence cache (and its
+branch for factors that add themselves to the system), and the LM on two
+poses (a 12x12 system), as in the reference's basic_scan_matching:
 PriorFactor(eye, 1e6, key=0) plus a binary factor (0 -> 1,
 max_corr_dist=2.0). The scene is a small ring world; both packages get the
 same frames (the JAX package's kNN normals and covariances, carried across
@@ -179,19 +180,35 @@ def test_graph_linearize_frozen_matches_jax(scene):
 
 
 def test_graph_refuses_unported_factor_kinds():
+    """Named for what the graph once did with a factor that adds itself to
+    the system: it raised. Now the graph hands it A [P, P, 6, 6] and b [P, 6]
+    in its order of dispatch, and what the factor returns is the system: its
+    blocks land in A and b beside the prior's, its error and its frozen
+    error function join the graph's."""
+
     @dataclasses.dataclass(frozen=True)
     class Dense:
-        key: int = 0
+        key: int = 1
 
         @property
         def keys(self):
             return (self.key,)
 
         def add_to_system(self, A, b, poses):
-            return A, b, 0.0, None
+            A = A.clone()
+            A[self.key, self.key] += 2.0 * torch.eye(6)
+            b = b + torch.arange(12.0).reshape(2, 6)
+            return A, b, torch.tensor(3.0), lambda p: 4.0 * torch.ones(p.shape[:-3])
 
-    with pytest.raises(NotImplementedError, match="Dense"):
-        FactorGraph([Dense()], num_poses=1).linearize_frozen(torch.eye(4)[None])
+    prior = PriorFactor(prior=torch.eye(4), weights=torch.ones(6), key=0)
+    poses = torch.eye(4).expand(2, 4, 4).clone()
+    A, b, err, efn = FactorGraph([prior, Dense()], num_poses=2).linearize_frozen(poses)
+    pA, pb, perr, pefn = FactorGraph([prior], num_poses=2).linearize_frozen(poses)
+    dA = (A - pA).reshape(2, 6, 2, 6).permute(0, 2, 1, 3)
+    assert torch.equal(dA[1, 1], 2.0 * torch.eye(6)) and not dA[0].any() and not dA[1, 0].any()
+    assert torch.equal(b - pb, torch.arange(12.0))
+    assert float(err - perr) == 3.0
+    assert torch.equal(efn(poses[None]) - pefn(poses[None]), torch.tensor([4.0]))
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -103,11 +103,20 @@ import jax  # noqa: E402
 from gtsam_points_tpu.factors import PriorFactor as JPrior  # noqa: E402
 from gtsam_points_tpu.factors import make_gicp_factor as jgicp  # noqa: E402
 from gtsam_points_tpu.factors import make_icp_factor as jicp  # noqa: E402
+from gtsam_points_tpu.factors import make_vgicp_factor as jvgicp  # noqa: E402
+from gtsam_points_tpu.factors import make_vgicp_factor_batch as jbatch  # noqa: E402
+from gtsam_points_tpu.ops.downsample import voxelgrid_sampling as jvoxelgrid  # noqa: E402
 from gtsam_points_tpu.ops.features import estimate_normals_covs as jfeatures  # noqa: E402
 from gtsam_points_tpu.ops.features import estimate_normals_covs_moments as jcovs  # noqa: E402
 from gtsam_points_tpu.ops.hash_grid import build_hash_grid as jgrid  # noqa: E402
 from gtsam_points_tpu.optim import FactorGraph as JGraph  # noqa: E402
+from gtsam_points_tpu.optim import LMParams as JLMParams  # noqa: E402
+from gtsam_points_tpu.optim import optimize_dogleg as jdogleg  # noqa: E402
+from gtsam_points_tpu.optim import optimize_gn as jgn  # noqa: E402
 from gtsam_points_tpu.optim import optimize_lm as jlm  # noqa: E402
+from gtsam_points_tpu.optim import sparse as jsparse  # noqa: E402
+from gtsam_points_tpu.optim.dogleg import DoglegParams as JDoglegParams  # noqa: E402
+from gtsam_points_tpu.ops.voxelmap import build_voxelmap as jbuild  # noqa: E402
 from gtsam_points_tpu.pipelines import odometry as jodo  # noqa: E402
 from gtsam_points_tpu.registration import cluster as jcl  # noqa: E402
 from gtsam_points_tpu.registration import pyramid as jpyr  # noqa: E402
@@ -118,11 +127,21 @@ from gtsam_points_tpu.utils.synthetic import ring_scans, ring_trajectory, ring_w
 from gtsam_points_tpu_torch.factors import PriorFactor as TPrior  # noqa: E402
 from gtsam_points_tpu_torch.factors import make_gicp_factor as tgicp  # noqa: E402
 from gtsam_points_tpu_torch.factors import make_icp_factor as ticp  # noqa: E402
+from gtsam_points_tpu_torch.factors import make_vgicp_factor as tvgicp  # noqa: E402
+from gtsam_points_tpu_torch.factors import make_vgicp_factor_batch as tbatch  # noqa: E402
+from gtsam_points_tpu_torch import interop  # noqa: E402
+from gtsam_points_tpu_torch.ops.downsample import voxelgrid_sampling as tvoxelgrid  # noqa: E402
+from gtsam_points_tpu_torch.ops.voxelmap import build_voxelmap as tbuild  # noqa: E402
 from gtsam_points_tpu_torch.ops.features import estimate_normals_covs as tfeatures  # noqa: E402
 from gtsam_points_tpu_torch.ops.features import estimate_normals_covs_moments as tcovs  # noqa: E402
 from gtsam_points_tpu_torch.ops.hash_grid import build_hash_grid as tgrid  # noqa: E402
 from gtsam_points_tpu_torch.optim import FactorGraph as TGraph  # noqa: E402
+from gtsam_points_tpu_torch.optim import LMParams as TLMParams  # noqa: E402
+from gtsam_points_tpu_torch.optim import DoglegParams as TDoglegParams  # noqa: E402
+from gtsam_points_tpu_torch.optim import optimize_dogleg as tdogleg  # noqa: E402
+from gtsam_points_tpu_torch.optim import optimize_gn as tgn  # noqa: E402
 from gtsam_points_tpu_torch.optim import optimize_lm as tlm  # noqa: E402
+from gtsam_points_tpu_torch.optim import optimize_pose_graph as tpose_graph  # noqa: E402
 from gtsam_points_tpu_torch.pipelines import odometry as todo  # noqa: E402
 from gtsam_points_tpu_torch.registration import cluster as tcl  # noqa: E402
 from gtsam_points_tpu_torch.registration import pyramid as tpyr  # noqa: E402
@@ -640,8 +659,8 @@ def _print_gicp_shifts(r: dict, name: str, kinds) -> None:
     keeps them: a dict by factor kind, or for the steps one list."""
     for unit in ("m", "rad"):
         worst = {kind: ", ".join(f"{x:.3e}" for x in np.asarray(r[kind][f"shift_{unit}"]).max(0)) for kind in kinds}
-        if kinds == ["steps"]:
-            print(f"{name}_{unit.upper()} = [{worst['steps']}]", flush=True)
+        if kinds in (["steps"], ["pose_graph"]):
+            print(f"{name}_{unit.upper()} = [{worst[kinds[0]]}]", flush=True)
             continue
         print(f"{name}_{unit.upper()} = {{", flush=True)
         for kind in kinds:
@@ -777,6 +796,196 @@ def order_shift(n_orders: int) -> dict:
     return r
 
 
+def _graph_frames(package: str, scans):
+    """Phase 23's preprocessing of each scan: voxelgrid_sampling at
+    GRAPH_LEAF into GRAPH_CAPACITY slots, then kNN normals and covariances."""
+    leaf, cap = chip_smoke.GRAPH_LEAF, chip_smoke.GRAPH_CAPACITY
+    if package == "jax":
+        prep = jax.jit(lambda f: jfeatures(jvoxelgrid(f, leaf, capacity=cap), k=10, grid_leaf=1.0))
+        return [prep(jmake(s)) for s in scans]
+    return [tfeatures(tvoxelgrid(tmake(s, device="cpu"), leaf, capacity=cap), k=10, grid_leaf=1.0) for s in scans]
+
+
+def _graph_runs(package: str, frames, T0, start, runs=chip_smoke.GRAPH_RUNS) -> dict:
+    """Phase 23's runs on one package -> run: (poses [P, 4, 4], error, iterations)."""
+    c = chip_smoke
+    edges = c.graph_edges(len(frames))
+    jx = package == "jax"
+    if jx:
+        gicp, vgicp, batch, build, prior, graph = jgicp, jvgicp, jbatch, jbuild, JPrior, JGraph
+        lm, gn, dogleg, LMP, DLP = jlm, jgn, jdogleg, JLMParams, JDoglegParams
+        T0_, w = jax.numpy.asarray(T0), jax.numpy.full((6,), c.GRAPH_PRIOR_WEIGHT)
+    else:
+        gicp, vgicp, batch, build, prior, graph = tgicp, tvgicp, tbatch, tbuild, TPrior, TGraph
+        lm, gn, dogleg, LMP, DLP = tlm, tgn, tdogleg, TLMParams, TDoglegParams
+        T0_, w = torch.from_numpy(T0), torch.full((6,), c.GRAPH_PRIOR_WEIGHT)
+
+    def with_prior(factors):
+        g = graph(num_poses=len(frames))
+        g.add(prior(prior=T0_, weights=w, key=0))
+        for f in factors:
+            g.add(f)
+        return g
+
+    graphs = {
+        "gicp": lambda: with_prior([gicp(i, j, frames[i], frames[j], max_corr_dist=c.GICP_MAX_CORR) for i, j in edges]),
+        "vgicp": lambda: with_prior([vgicp(i, j, frames[i], frames[j], voxel_resolution=c.GRAPH_VGICP_LEAF,
+                                           min_voxel_points=c.GRAPH_VGICP_MIN_POINTS) for i, j in edges]),
+        "vgicp_batch": lambda: with_prior([batch([build(frames[i], c.GRAPH_VGICP_LEAF) for i, _ in edges],
+                                                 [frames[j] for _, j in edges], [i for i, _ in edges],
+                                                 [j for _, j in edges], min_voxel_points=c.GRAPH_VGICP_MIN_POINTS)]),
+    }
+    built = {}
+    out = {}
+    for run in runs:
+        name, opt = run.rsplit("_", 1)
+        g = built[name] = built.get(name) or graphs[name]()
+        if opt == "lm":
+            fn = lambda p, g=g: lm(g, p, LMP(max_iterations=c.GRAPH_LM_ITERATIONS))  # noqa: E731
+            iters = lambda r: r.status.num_iterations  # noqa: E731
+        elif opt == "gn":
+            fn = lambda p, g=g: gn(g, p, iterations=c.GRAPH_GN_ITERATIONS)  # noqa: E731
+            iters = lambda r: c.GRAPH_GN_ITERATIONS  # noqa: E731
+        else:
+            fn = lambda p, g=g: dogleg(g, p, DLP(max_iterations=c.GRAPH_DOGLEG_ITERATIONS))  # noqa: E731
+            iters = lambda r: r.num_iterations  # noqa: E731
+        res = jax.jit(fn)(start) if jx else fn(torch.from_numpy(start))
+        out[run] = (np.asarray(res.poses), float(res.error), int(iters(res)))
+    return out
+
+
+def _truth_error(T_true, poses):
+    """The demo's error: each pose relative to pose 0 against the truth's
+    -> (max m, max rad)."""
+    est = torch.from_numpy(np.linalg.inv(poses[0]) @ poses)
+    ref = torch.from_numpy((np.linalg.inv(T_true[0]) @ np.stack(T_true)).astype(np.float32))
+    rot, trans = tse3.pose_error(ref, est)
+    return float(trans.max()), float(rot.max())
+
+
+def compare_graph(n_poses: int, runs=chip_smoke.GRAPH_RUNS) -> dict:
+    """Phase 23 in both packages on the CPU -> per run: per-pose gaps, the
+    JAX poses, errors, iterations, errors against the truth, seconds."""
+    T_true, scans = cluster_scans(n_poses)
+    start = chip_smoke.graph_start(T_true)
+    t0 = time.perf_counter()
+    jf = _graph_frames("jax", scans)
+    j = _graph_runs("jax", jf, T_true[0], start, runs)
+    t1 = time.perf_counter()
+    tf = _graph_frames("torch", scans)
+    t = _graph_runs("torch", tf, T_true[0], start, runs)
+    t2 = time.perf_counter()
+    r = {"poses": n_poses, "kept": [int(np.asarray(f.mask).sum()) for f in jf],
+         "kept_torch": [int(f.mask.sum()) for f in tf], "seconds_jax": t1 - t0, "seconds_torch": t2 - t1}
+    for run in runs:
+        rot, trans = tse3.pose_error(torch.from_numpy(j[run][0]), torch.from_numpy(t[run][0]))
+        r[run] = {"gap_m": trans.tolist(), "gap_rad": rot.tolist(), "jax_poses": _pose_rows(j[run][0]),
+                  "error_jax": j[run][1], "error_torch": t[run][1], "iters_jax": j[run][2], "iters_torch": t[run][2],
+                  "truth_jax": _truth_error(T_true, j[run][0]), "truth_torch": _truth_error(T_true, t[run][0])}
+    return r
+
+
+def graph_summary(r: dict) -> str:
+    return f"chain graph, {r['poses']} poses, kept points jax {r['kept']} port {r['kept_torch']}: " + "; ".join(
+        f"{run}: max gap {max(r[run]['gap_m']):.6e} m {max(r[run]['gap_rad']):.6e} rad, error jax "
+        f"{r[run]['error_jax']:.6f} port {r[run]['error_torch']:.6f}, iterations jax {r[run]['iters_jax']} port "
+        f"{r[run]['iters_torch']}, against the truth jax {r[run]['truth_jax'][0]:.6f} m {r[run]['truth_jax'][1]:.6f} "
+        f"rad port {r[run]['truth_torch'][0]:.6f} m {r[run]['truth_torch'][1]:.6f} rad"
+        for run in chip_smoke.GRAPH_RUNS if run in r
+    ) + f"; {r['seconds_jax']:.1f} s / {r['seconds_torch']:.1f} s"
+
+
+def graph_order_shift(n_poses: int, n_orders: int, runs=chip_smoke.GRAPH_RUNS, package: str = "jax") -> dict:
+    """Phase 23 again with every scan's points in `n_orders` other orders
+    (RandomState(600 + i) permutations), run by `package`, against the JAX
+    package's run in the scans' own order -> per run the shift of each pose
+    and the iterations, per order."""
+    T_true, scans = cluster_scans(n_poses)
+    start = chip_smoke.graph_start(T_true)
+    base = _graph_runs("jax", _graph_frames("jax", scans), T_true[0], start, runs)
+    r = {"orders": n_orders, "package": package, **{run: {"shift_m": [], "shift_rad": [], "iters": []} for run in runs}}
+    for i in range(n_orders):
+        rng = np.random.RandomState(600 + i)
+        other = _graph_runs(package, _graph_frames(package, [s[rng.permutation(len(s))] for s in scans]), T_true[0],
+                            start, runs)
+        for run in runs:
+            rot, trans = tse3.pose_error(torch.from_numpy(base[run][0]), torch.from_numpy(other[run][0]))
+            r[run]["shift_m"].append(trans.tolist())
+            r[run]["shift_rad"].append(rot.tolist())
+            r[run]["iters"].append(other[run][2])
+    return r
+
+
+def graph_order_iterations(r: dict, runs) -> str:
+    return f"{r['package']} in the other orders against JAX in the scans' own: " + "; ".join(
+        f"{run}: iterations per order {r[run]['iters']}, largest shift per order (m) "
+        + ", ".join(f"{max(x):.6e}" for x in r[run]["shift_m"])
+        for run in runs
+    )
+
+
+def _pose_graph_runs(package: str, arrays, start) -> tuple:
+    """optimize_pose_graph on one package -> (poses [P, 4, 4], error, iterations)."""
+    if package == "jax":
+        pg = jsparse.PoseGraphEdges(**{k: jax.numpy.asarray(v) for k, v in arrays.items()})
+        res = jax.jit(lambda p: jsparse.optimize_pose_graph(pg, p, max_iterations=chip_smoke.PG_ITERATIONS))(start)
+    else:
+        pg = interop.pose_graph_from_numpy(arrays, device="cpu")
+        res = tpose_graph(pg, torch.from_numpy(start), max_iterations=chip_smoke.PG_ITERATIONS)
+    return np.asarray(res.poses), float(res.error), int(res.iterations)
+
+
+def compare_pose_graph(n_poses: int) -> dict:
+    """Phase 24's pose graph in both packages on the CPU -> gaps at every
+    PG_SAMPLE-th pose, the JAX poses there, errors, iterations, seconds."""
+    _, arrays, start = chip_smoke.pose_graph_arrays(n_poses)
+    t0 = time.perf_counter()
+    j = _pose_graph_runs("jax", arrays, start)
+    t1 = time.perf_counter()
+    t = _pose_graph_runs("torch", arrays, start)
+    t2 = time.perf_counter()
+    keys = slice(0, n_poses, chip_smoke.PG_SAMPLE)
+    rot, trans = tse3.pose_error(torch.from_numpy(j[0][keys]), torch.from_numpy(t[0][keys]))
+    return {"poses": n_poses, "gap_m": trans.tolist(), "gap_rad": rot.tolist(), "jax_poses": _pose_rows(j[0][keys]),
+            "error_jax": j[1], "error_torch": t[1], "iters_jax": j[2], "iters_torch": t[2],
+            "seconds_jax": t1 - t0, "seconds_torch": t2 - t1}
+
+
+def pose_graph_summary(r: dict) -> str:
+    return (f"pose graph, {r['poses']} poses: every {chip_smoke.PG_SAMPLE}th pose max gap {max(r['gap_m']):.6e} m "
+            f"{max(r['gap_rad']):.6e} rad; error jax {r['error_jax']:.6f} port {r['error_torch']:.6f}; iterations "
+            f"jax {r['iters_jax']} port {r['iters_torch']}; {r['seconds_jax']:.1f} s / {r['seconds_torch']:.1f} s")
+
+
+def pose_graph_order_shift(n_poses: int, n_orders: int) -> dict:
+    """The JAX package alone: the pose graph again with its edges in
+    `n_orders` other orders (RandomState(700 + i)) -> the shift of every
+    PG_SAMPLE-th pose, per order."""
+    _, arrays, start = chip_smoke.pose_graph_arrays(n_poses)
+    base = _pose_graph_runs("jax", arrays, start)[0]
+    keys = slice(0, n_poses, chip_smoke.PG_SAMPLE)
+    r = {"orders": n_orders, "pose_graph": {"shift_m": [], "shift_rad": []}}
+    for i in range(n_orders):
+        perm = np.random.RandomState(700 + i).permutation(len(arrays["t_idx"]))
+        other = dict(arrays, **{k: arrays[k][perm] for k in ("measured", "weights", "t_idx", "s_idx")})
+        rot, trans = tse3.pose_error(torch.from_numpy(base[keys]), torch.from_numpy(_pose_graph_runs("jax", other, start)[0][keys]))
+        r["pose_graph"]["shift_m"].append(trans.tolist())
+        r["pose_graph"]["shift_rad"].append(rot.tolist())
+    return r
+
+
+def _print_rows(name: str, rows_by_run: dict) -> None:
+    """Poses (top three rows, row-major) by run, as chip_smoke.py keeps them."""
+    print(f"{name} = {{", flush=True)
+    for run, rows in rows_by_run.items():
+        print(f'    "{run}": [')
+        for p in rows:
+            print("        [" + ", ".join(np.format_float_positional(np.float32(x), unique=True) for x in p) + "],")
+        print("    ],", flush=True)
+    print("}", flush=True)
+
+
+
 def order_summary(r: dict) -> str:
     return (
         f"pyramid, target summed in {r['orders']} other orders: keys and counts equal {all(r['same_keys'])}, "
@@ -871,6 +1080,19 @@ def main() -> int:
                         help="other point orders of the scans for the JAX two-scan registrations' and "
                              "frame-to-frame steps' order shift, over --gicp-pairs inits and --gicp-steps "
                              "steps (0: none)")
+    parser.add_argument("--graph-poses", type=int, default=0,
+                        help="phase 23's chain graph over this many scans, both packages: GICP LM, VGICP LM, GN "
+                             "and Dogleg, the VGICP batch LM (0: none)")
+    parser.add_argument("--pose-graph", type=int, default=0,
+                        help="phase 24's block-sparse pose graph of this many poses, both packages (0: none)")
+    parser.add_argument("--graph-orders", type=int, default=0,
+                        help="other point orders of the scans (--graph-poses) and other edge orders (--pose-graph) "
+                             "for the JAX package's order shift (0: none)")
+    parser.add_argument("--graph-order-runs", default=",".join(chip_smoke.GRAPH_RUNS),
+                        help="the runs of phase 23 that --graph-orders repeats, comma-separated")
+    parser.add_argument("--graph-order-package", choices=("jax", "torch"), default="jax",
+                        help="the package that runs the other orders of --graph-orders (the shift is taken "
+                             "against the JAX package's run in the scans' own order)")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -926,6 +1148,36 @@ def main() -> int:
         r = gicp_step_order_shift(args.gicp_steps, args.gicp_orders)
         print(gicp_order_summary(r, ["steps"]), flush=True)
         _print_gicp_shifts(r, "GICP_STEP_ORDER_SHIFT", ["steps"])
+        report.append(r)
+    if args.graph_poses:
+        r = compare_graph(args.graph_poses)
+        print(graph_summary(r), flush=True)
+        _print_rows("GRAPH_JAX_POSES", {run: r[run]["jax_poses"] for run in chip_smoke.GRAPH_RUNS})
+        print("GRAPH_JAX_ERRORS = {" + ", ".join(f'"{run}": {r[run]["error_jax"]!r}' for run in chip_smoke.GRAPH_RUNS)
+              + "}", flush=True)
+        print("GRAPH_JAX_ITERATIONS = {" + ", ".join(f'"{run}": {r[run]["iters_jax"]}' for run in chip_smoke.GRAPH_RUNS)
+              + "}", flush=True)
+        print("GRAPH_JAX_TRUTH = {" + ", ".join(f'"{run}": ({r[run]["truth_jax"][0]:.6f}, {r[run]["truth_jax"][1]:.6f})'
+                                               for run in chip_smoke.GRAPH_RUNS) + "}", flush=True)
+        report.append(r)
+    if args.graph_orders and args.graph_poses:
+        runs = args.graph_order_runs.split(",")
+        r = graph_order_shift(args.graph_poses, args.graph_orders, runs, args.graph_order_package)
+        print(graph_order_iterations(r, runs), flush=True)
+        if args.graph_order_package == "jax":
+            print(gicp_order_summary(r, runs), flush=True)
+            _print_gicp_shifts(r, "GRAPH_ORDER_SHIFT", runs)
+        report.append(r)
+    if args.pose_graph:
+        r = compare_pose_graph(args.pose_graph)
+        print(pose_graph_summary(r), flush=True)
+        _print_kept("PG_JAX_POSES", r["jax_poses"])
+        print(f"PG_JAX_ERROR = {r['error_jax']!r}\nPG_JAX_ITERATIONS = {r['iters_jax']}", flush=True)
+        report.append(r)
+    if args.graph_orders and args.pose_graph:
+        r = pose_graph_order_shift(args.pose_graph, args.graph_orders)
+        print(gicp_order_summary(r, ["pose_graph"]), flush=True)
+        _print_gicp_shifts(r, "PG_ORDER_SHIFT", ["pose_graph"])
         report.append(r)
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
