@@ -165,6 +165,26 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      equal bit for bit, every 25th pose and the error against the JAX
      package's, host reads; and a small graph of the pose and multi-key
      factors, linearize_frozen on the card against the CPU port;
+ 25. loop detection on phase 23's frames: estimate_fpfh of frames 0, 1 and
+     15 on the card against the CPU port (neighbour tables equal, pair bins
+     equal but for flips each at a bin edge or a swap tie, the rows no flip
+     reaches within a bound), feature_knn's indices against the CPU port's
+     (ties counted), estimate_pose_gnc on the pairs (0, 1) and (0, 15)
+     against the JAX package's poses, the IRLS on the CPU port's (0, 15)
+     matches against the CPU port's, errors against the truth, inlier
+     rates, FPFH and GNC ms;
+ 26. ISAM2Ext on the first 6 of those frames (the incremental_isam2_slam
+     protocol: window 3, 30 LM iterations, a prior, a VGICP factor an
+     update, then the late loop closure (0, 5)), twice, equal bit for bit; every LM
+     call's K3 launches equal to its iterations x its VGICP factors, K3's
+     plain version not called; every update's estimates, windows, frozen
+     keys, num_compiles and compiled against the JAX package's; ms an
+     update, synchronizing calls an update, the relax's movement of the
+     frozen poses; K3 held to its plain version on the loop factor at the
+     relaxed poses;
+ 27. the same stream through FixedLagSmoother (3 poses kept) ending with
+     add_factors([loop]), held the same way; cg_solve on phase 26's last
+     window system against torch.linalg.solve;
 then one JSON line for all five kernels (K3, K1, K4, K2, K5; K3's and K1's
 launches on each of their paths) and, last, the device line.
 
@@ -751,6 +771,93 @@ PG_JAX_ERROR = 45.1278190612793
 PG_JAX_ITERATIONS = 30
 SMALL_GRAPH_TOL = 1e-5  # phase 24's small graph, card against the CPU port, x max|ref| a block
 PG_ERROR_TOL = 1e-4  # the final error against the JAX package's, relative
+
+# Phases 25-27: the SLAM back end on phase 23's GRAPH_POSES preprocessed
+# frames. Phase 25, loop detection: estimate_fpfh (defaults) on frames 0,
+# GNC_NEAR_PAIR[1] and GRAPH_POSES - 1, estimate_pose_gnc(GNCParams())
+# between frames 0 and GRAPH_POSES - 1 (the far pair) and on GNC_NEAR_PAIR
+# (the near pair); the card's FPFH against the CPU port's (the neighbour tables equal, the pair bins
+# equal but for flips at a bin edge, FPFH_EDGE_TOL in bin units, or at PCL's
+# swap test tie, FPFH_SWAP_TIE; the rows no flip reaches within
+# FPFH_HIST_TOL), feature_knn's indices on the same features (a differing
+# index a tie: its exact distance within FPFH_TIE_TOL of the CPU port's
+# candidate's, relative to |q|² + |t|², the scale of the rounding of
+# |q|² + |t|² - 2 q·t), each pair's pose
+# within GICP_BOUND_M and _RAD of the JAX package's or GICP_SHIFT_MARGIN
+# times its order shift, and the IRLS alone (gnc_irls) on the CPU port's
+# far-pair matches, card against the CPU port, within GICP_BOUND_M and
+# _RAD. Phase 26, the incremental_isam2_slam protocol:
+# ISAM2Ext(window_size=ISAM2_WINDOW, LMParams(max_iterations=
+# ISAM2_ITERATIONS)), a PriorFactor(T_true[0], GRAPH_PRIOR_WEIGHT) on key 0,
+# then a VGICP factor (i-1, i) (GRAPH_VGICP_LEAF, GRAPH_VGICP_MIN_POINTS) an
+# update, initial value estimate(i-1) @ the true motion @
+# se3_exp(uniform(-0.1, 0.1, 6)) from RandomState(ISAM2_SEED), and the late
+# loop closure (0, ISAM2_POSES - 1) once key 0 froze, on the first
+# ISAM2_POSES frames (cut from GRAPH_POSES: an eager window update takes
+# 1.7-2.6 s on the card, PERF.md, and 10 frames put phases 25-27 at 92 s,
+# past the minute they may add to the smoke). Phase 27, the same
+# stream through FixedLagSmoother(lag=ISAM2_LAG) with stamps one apart (3
+# poses kept), ending with add_factors([loop]); then cg_solve on phase 26's
+# last window system against torch.linalg.solve within CG_TOL x max|x|.
+ISAM2_POSES = 6
+ISAM2_WINDOW = 3
+ISAM2_ITERATIONS = 30
+ISAM2_SEED = 42
+ISAM2_LAG = 2.5
+ISAM2_RUNS = 2  # phase 26's stream twice on the card, equal bit for bit (phase 27's once)
+FPFH_REPS = 5
+FPFH_EDGE_TOL = 1e-4
+FPFH_SWAP_TIE = 1e-6
+FPFH_HIST_TOL = 1e-3
+FPFH_TIE_TOL = 1e-5
+CG_TOL = 1e-4
+# The JAX package's records of phases 26-27 on the CPU
+# (tests/test_torch_real_size.py --isam2 6 --isam2-orders 8): per update
+# the window, the frozen keys, num_compiles, compiled (None for the
+# smoother's pose updates), and the poses the update moved, top three rows
+# row-major (the window's; every pose at the loop closure). The CPU port's
+# largest gap 7.739e-05 m (7.739e-05 for the smoother). ISAM2_ORDER_SHIFT_M
+# and _RAD: per update the largest shift of those poses with the scans'
+# points in 8 other orders (at most 5.160e-02 m, update 2), the same for
+# phase 27.
+ISAM2_JAX = {
+    "window": [[0], [0, 1], [0, 1, 2], [1, 2, 3], [2, 3, 4], [3, 4, 5], [3, 4, 5]],
+    "frozen": [[], [], [], [0], [0, 1], [0, 1, 2], [0, 1, 2]],
+    "num_compiles": [1, 2, 3, 6, 7, 7, 10],
+    "compiled": [True, True, True, True, False, False, True],
+    "poses": [
+        [[-0., -1., 0., 22., 1., -0., 0., 0., 0., 0., 1., 0.5]],
+        [[-0.0000000034796486, -1., 0.0000000073341107, 22., 1., -0.0000000034796486, 0.0000000015869682, 0.0000000004251537, -0.0000000015869102, 0.000000007334338, 1., 0.5], [-0.062180754, -0.9980648, 0.000014220567, 21.957172, 0.99806464, -0.062180746, 0.000014333555, 1.3693608, -0.000013420924, 0.000015072572, 1., 0.500821]],
+        [[-0.000000023659396, -1., -0.0000000005016728, 22., 1., -0.000000023659567, 0.000000003927088, -0.00000000012800946, -0.0000000039266754, -0.000000000501165, 1., 0.5], [-0.062180776, -0.9980648, 0.000014212706, 21.957172, 0.99806464, -0.06218077, 0.000014335905, 1.3693606, -0.000013423757, 0.000015064874, 1., 0.500821], [-0.12466075, -0.9921993, -0.00001972305, 21.826967, 0.99219906, -0.12466072, 0.00003879898, 2.7436655, -0.00004097872, -0.000014739507, 1., 0.5023898]],
+        [[-0.062180713, -0.99806476, 0.000014227264, 21.957172, 0.9980646, -0.062180705, 0.000014337796, 1.3693568, -0.000013424741, 0.00001507952, 1., 0.500821], [-0.124660425, -0.99219936, -0.000019708272, 21.826965, 0.9921991, -0.124660395, 0.0000388013, 2.7436564, -0.00004097917, -0.000014724577, 1., 0.5023898], [-0.18660155, -0.9824356, -0.0000028721408, 21.611158, 0.9824352, -0.18660153, 0.000033532157, 4.1054196, -0.00003349569, 0.0000034221812, 1., 0.5029116]],
+        [[-0.12466069, -0.99219924, -0.000019726134, 21.826965, 0.992199, -0.12466066, 0.000038794537, 2.7436657, -0.0000409747, -0.000014743129, 1., 0.50238985], [-0.18660282, -0.9824353, -0.0000028905056, 21.61115, 0.9824349, -0.1866028, 0.000033524822, 4.1054506, -0.000033491917, 0.0000034028162, 1., 0.5029116], [-0.24821076, -0.96870613, 0.000018361821, 21.309345, 0.96870565, -0.24821074, 0.000059454662, 5.4608974, -0.000053058164, 0.000032515592, 1., 0.5032462]],
+        [[-0.18660285, -0.98243535, -0.0000028829531, 21.61115, 0.982435, -0.18660283, 0.00003352616, 4.10545, -0.000033491822, 0.0000034104867, 1., 0.5029116], [-0.24809977, -0.96873456, 0.000017004553, 21.30996, 0.9687341, -0.24809976, 0.000060110302, 5.4585347, -0.000054033775, 0.00003135734, 1., 0.5032721], [-0.30815744, -0.9513355, 0.000024431798, 20.926792, 0.9513351, -0.30815753, 0.0000546855, 6.7795343, -0.000044521796, 0.000040066607, 0.99999994, 0.504246]],
+        [[0.00000010355059, -1., -0.00000004098649, 22., 1., 0.00000010355042, -0.00000007265261, -0.000000025574922, 0.00000007265302, -0.00000004098598, 1., 0.5], [-0.062239427, -0.9980611, 0.00003292803, 21.957542, 0.99806094, -0.06223942, 0.000019303861, 1.3707962, -0.000017216369, 0.000034053905, 1., 0.50017226], [-0.12477767, -0.9921845, 0.000017290078, 21.827536, 0.9921843, -0.12477764, 0.000049010323, 2.74653, -0.000046498073, 0.00002326268, 1., 0.50109625], [-0.18679905, -0.9823981, -0.000053133663, 21.612211, 0.98239774, -0.18679903, -0.0000041532585, 4.1098356, -0.0000058683936, -0.00005298739, 1., 0.50038373], [-0.24829046, -0.9686857, -0.00002669559, 21.310947, 0.9686852, -0.24829046, 0.000021415002, 5.4628105, -0.000027391354, -0.000020574438, 1., 0.50056], [-0.30842426, -0.951249, -0.000013327539, 20.927145, 0.9512486, -0.30842435, 0.000016183438, 6.7854676, -0.00001951843, -0.000007708838, 0.99999994, 0.50134593]],
+    ],
+}
+ISAM2_ORDER_SHIFT_M = [0.000e+00, 2.757e-05, 5.160e-02, 6.678e-04, 1.222e-03, 1.225e-03, 6.664e-04]
+ISAM2_ORDER_SHIFT_RAD = [0.000e+00, 1.228e-06, 2.334e-03, 2.761e-05, 5.584e-05, 5.901e-05, 3.091e-05]
+# The smoother's records are the window's; only `compiled` differs.
+FIXED_LAG_JAX = {**ISAM2_JAX, "compiled": [None, None, None, None, None, None, True]}
+# Phase 25's JAX GNC pose (frame 0 <- frame 15, top three rows) and inlier
+# rate (--gnc 16 --gnc-orders 3). On the ring GNC lands 14.74 m and 0.68 rad
+# from the truth in JAX (the CPU port 15.34 m, 0.72 rad, 0.702 m from JAX):
+# the walls are rings about the world's axis, so FPFH matches alias
+# along the corridor; the order of the points alone moves JAX's pose by
+# 2.3e-3, 0.706 and 2.064 m, so the pose's bound is twice 2.064 m.
+GNC_JAX_POSE = [0.9662483, -0.25761276, 0.0001705547, 5.648526, 0.25761157, 0.9662455, 0.0023721994, 0.72655106, -0.0007759048, -0.0022481903, 0.9999969, 0.021128654]
+GNC_JAX_INLIER = 0.8498718738555908
+GNC_ORDER_SHIFT_M = 2.064e+00
+GNC_ORDER_SHIFT_RAD = 1.009e-01
+# The near pair (frame 0 <- frame 1), where GNC converges in both packages
+# (JAX 0.0168 m and 5.5e-4 rad from the truth, the CPU port 3.114e-3 m from
+# JAX): its JAX pose and inlier rate, the order shift 4.345e-3 m over 3
+# orders (--gnc 16 --gnc-orders 3), so the bound is twice that.
+GNC_NEAR_PAIR = (0, 1)
+GNC_NEAR_JAX_POSE = [0.99805033, -0.062417142, -0.00009362097, 1.3664556, 0.06241707, 0.9980502, -0.000397394, 0.04306221, 0.00011824975, 0.00039080344, 1.0000005, -0.0076361895]
+GNC_NEAR_JAX_INLIER = 0.996920645236969
+GNC_NEAR_ORDER_SHIFT_M = 4.345e-03
+GNC_NEAR_ORDER_SHIFT_RAD = 1.294e-04
 
 # K2 (the batched unary linearize) raced as the batched dispatch gate of
 # scripts/tpu_parity.py races it: B = 64 lanes over one 25088-slot source,
@@ -3289,8 +3396,8 @@ def phase_chain_graph(torch, scene) -> dict:
     printed); the batch run within GRAPH_BATCH_BOUND_M of the VGICP list
     run; K3 held against its plain version (`hold_k3`) on the last edge's
     GICP, VGICP and batch payloads at the start and the final poses; the
-    VGICP LM once more with K3's plain version, its stop recorded. -> K3's
-    launches by path."""
+    VGICP LM once more with K3's plain version, its stop recorded. -> (K3's
+    launches by path, the preprocessed frames, phases 25-27's input)."""
     import numpy as np
 
     from gtsam_points_tpu_torch.factors import PriorFactor
@@ -3391,7 +3498,7 @@ def phase_chain_graph(torch, scene) -> dict:
         f"K3 run's {float(trans_k.max()):.3e} m {float(rot_k.max()):.3e} rad (recorded)")
     return {"graph_gicp": launches["gicp_lm"],
             "graph_vgicp": launches["vgicp_lm"] + launches["vgicp_gn"] + launches["vgicp_dogleg"],
-            "graph_batch": launches["vgicp_batch_lm"]}
+            "graph_batch": launches["vgicp_batch_lm"]}, frames
 
 
 def _small_graph(torch, device: str):
@@ -3495,6 +3602,420 @@ def phase_pose_graph(torch) -> None:
 
 
 
+def isam2_noise(n_poses: int):
+    """Phases 26-27's init noise [P, 4, 4] (numpy): identity for pose 0,
+    se3_exp(uniform(-0.1, 0.1, 6)) from RandomState(ISAM2_SEED) for i >= 1."""
+    import numpy as np
+    import torch
+
+    from gtsam_points_tpu_torch.utils import se3
+
+    rng = np.random.RandomState(ISAM2_SEED)
+    out = [np.eye(4, dtype=np.float32)]
+    for _ in range(1, n_poses):
+        out.append(se3.se3_exp(torch.from_numpy(rng.uniform(-0.1, 0.1, 6).astype(np.float32))).numpy())
+    return np.stack(out).astype(np.float32)
+
+
+def isam2_stream(api: dict, frames, T_true, smoother: bool = False, on_update=None):
+    """Phases 26-27's protocol on one package: `api` holds its ISAM2Ext,
+    FixedLagSmoother, LMParams, PriorFactor and make_vgicp_factor, `arr`
+    (numpy -> the package's array on its device) and `kw` (the optimizer's
+    device keyword). `on_update(i)`, if given, is a context manager entered
+    around each update. -> (records, the ISAM2Ext, the loop factor): a
+    record an update (the last the loop closure) with its window, frozen
+    keys, num_compiles, compiled (None for the smoother's pose updates),
+    iterations, every estimate [P, 4, 4] and its host-clock ms."""
+    import contextlib
+
+    import numpy as np
+
+    noise = isam2_noise(len(frames))
+    arr = api["arr"]
+    lm = api["LMParams"](max_iterations=ISAM2_ITERATIONS)
+    kw = dict(voxel_resolution=GRAPH_VGICP_LEAF, min_voxel_points=GRAPH_VGICP_MIN_POINTS)
+    if smoother:
+        opt = api["FixedLagSmoother"](lag=ISAM2_LAG, lm_params=lm, **api["kw"])
+        isam = opt._isam
+    else:
+        opt = isam = api["ISAM2Ext"](window_size=ISAM2_WINDOW, lm_params=lm, **api["kw"])
+    around = on_update or (lambda i: contextlib.nullcontext())
+    records = []
+
+    def run(i, call):
+        with around(i):
+            t0 = time.perf_counter()
+            res = call()
+            ms = (time.perf_counter() - t0) * 1e3
+        full = hasattr(res, "compiled")
+        records.append({"window": list(isam.window), "frozen": sorted(isam.frozen),
+                        "num_compiles": isam.num_compiles, "compiled": bool(res.compiled) if full else None,
+                        "iterations": int(res.num_iterations) if full else None,
+                        "estimates": isam.calculate_estimate().copy(), "ms": ms})
+
+    n = len(frames)
+    for i in range(n):
+        if i == 0:
+            factors = [api["PriorFactor"](prior=arr(T_true[0]), weights=arr(np.full(6, GRAPH_PRIOR_WEIGHT)), key=0)]
+            init = np.asarray(T_true[0], np.float32)
+        else:
+            factors = [api["make_vgicp_factor"](i - 1, i, frames[i - 1], frames[i], **kw)]
+            init = isam.calculate_estimate_pose(i - 1) @ np.linalg.inv(T_true[i - 1]) @ T_true[i] @ noise[i]
+        if smoother:
+            run(i, lambda: opt.update(i, float(i), arr(init), factors))
+        else:
+            run(i, lambda: opt.update(factors, {i: arr(init)}))
+    loop = api["make_vgicp_factor"](0, n - 1, frames[0], frames[n - 1], **kw)
+    run(n, lambda: opt.add_factors([loop]) if smoother else opt.update([loop]))
+    return records, isam, loop
+
+
+def _stream_rows(records) -> list:
+    """Per update the poses it moved, top three rows row-major: the window's,
+    and every pose at the loop closure (the frozen ones keep earlier rows)."""
+    out = []
+    for r in records:
+        keys = range(len(r["estimates"])) if r is records[-1] else r["window"]
+        out.append([r["estimates"][k][:3].reshape(12).tolist() for k in keys])
+    return out
+
+
+def _card_api(torch) -> dict:
+    import numpy as np
+
+    from gtsam_points_tpu_torch.factors import PriorFactor, make_vgicp_factor
+    from gtsam_points_tpu_torch.optim import FixedLagSmoother, ISAM2Ext, LMParams
+
+    return {"ISAM2Ext": ISAM2Ext, "FixedLagSmoother": FixedLagSmoother, "LMParams": LMParams,
+            "PriorFactor": PriorFactor, "make_vgicp_factor": make_vgicp_factor,
+            "arr": lambda x: torch.from_numpy(np.array(x, dtype=np.float32)).cuda(), "kw": {"device": "cuda"}}
+
+
+def _fpfh_flips(torch, frame, frame_cpu) -> tuple:
+    """The card's FPFH pair bins of `frame` against the CPU port's on its
+    copy -> (neighbour tables equal, flips, pairs, flips not at a bin edge
+    or a swap tie, the rows a flip reaches as a bool [N])."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.registration import fpfh
+
+    c_idx, _, c_val = fpfh.fpfh_neighbors(frame, device="cuda")
+    h_idx, _, h_val = fpfh.fpfh_neighbors(frame_cpu, device="cpu")
+    same_nn = torch.equal(c_idx.cpu(), h_idx) and torch.equal(c_val.cpu(), h_val)
+    c_bins = [b.cpu().numpy() for b in fpfh.spfh_bins(frame, c_idx)]
+    h_bins = [b.numpy() for b in fpfh.spfh_bins(frame_cpu, h_idx)]
+    i = np.maximum(h_idx.numpy(), 0)
+    valid = h_val.numpy()
+    P = frame_cpu.points.numpy().astype(np.float64)
+    N = frame_cpu.normals.numpy().astype(np.float64)
+    du = P[i] - P[:, None]
+    du = du / np.maximum(np.linalg.norm(du, axis=-1, keepdims=True), 1e-12)
+    tie = np.abs(np.abs(np.sum(N[:, None] * du, -1)) - np.abs(np.sum(N[i] * du, -1))) < FPFH_SWAP_TIE
+    feats = [x.numpy().astype(np.float64) for x in fpfh.compute_pair_features(
+        frame_cpu.points[:, None], frame_cpu.normals[:, None], frame_cpu.points[i], frame_cpu.normals[i])[:3]]
+    flip = np.zeros_like(valid)
+    unexplained = 0
+    for x, a, b, (lo, hi) in zip(feats, c_bins, h_bins, ((-1.0, 1.0), (-1.0, 1.0), (-np.pi, np.pi))):
+        d = (a != b) & valid
+        scaled = (x - lo) / (hi - lo) * fpfh.FPFH_BINS
+        edge = np.abs(scaled - np.round(scaled)) < FPFH_EDGE_TOL
+        unexplained += int((d & ~edge & ~tie).sum())
+        flip |= d
+    touched = flip.any(1)
+    return same_nn, int(flip.sum()), int(valid.sum()), unexplained, touched | (touched[i] & valid).any(1)
+
+
+def _syncs(torch, fn):
+    """fn() with the card's synchronizing calls counted -> (its result, the count)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def _host_median_ms(torch, fn, reps=FPFH_REPS):
+    """fn()'s median ms over `reps` calls (host clock, synchronized) -> (the last result, ms)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def phase_loop_detection(torch, frames, T_true) -> None:
+    """Phase 25: FPFH of frames 0, GNC_NEAR_PAIR[1] and GRAPH_POSES - 1 on
+    the card against the CPU port (neighbour tables equal, bin flips counted
+    and each explained, unreached rows within FPFH_HIST_TOL); feature_knn's
+    indices on the far pair's CPU features against the CPU port (ties
+    counted, each within FPFH_TIE_TOL); estimate_pose_gnc on the card on the
+    near pair (GNC_NEAR_PAIR, where GNC converges) against the JAX package's
+    pose within GICP_BOUND_M and _RAD or GICP_SHIFT_MARGIN x its order shift,
+    and on the far pair (0, GRAPH_POSES - 1, where both packages alias) the
+    same way against GNC_JAX_POSE; the IRLS (gnc_irls) on the CPU port's
+    matches of the far pair, card against the CPU port, within GICP_BOUND_M
+    and _RAD; and, recorded, the whole GNC from the CPU port's features,
+    whose card matches differ from the CPU port's at the feature_knn ties.
+    Errors against the truth, inlier rates, FPFH and GNC medians over
+    FPFH_REPS calls, the synchronizing calls of one GNC."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.registration import GNCParams, align_points_se3, estimate_fpfh, estimate_pose_gnc
+    from gtsam_points_tpu_torch.registration import feature_knn
+    from gtsam_points_tpu_torch.registration.gnc import gnc_irls, reciprocal_matches
+    from gtsam_points_tpu_torch.utils import se3
+
+    far = (0, len(frames) - 1)
+    card = {k: frames[k] for k in sorted({*far, *GNC_NEAR_PAIR})}
+    cpu = {k: _cpu_copy(f) for k, f in card.items()}
+    feats, cpu_feats = {}, {}
+    for k, f in card.items():
+        feats[k], ms = _host_median_ms(torch, lambda: estimate_fpfh(f, device="cuda"))
+        cpu_feats[k] = estimate_fpfh(cpu[k], device="cpu")
+        same_nn, flips, pairs, unexplained, reached = _fpfh_flips(torch, f, cpu[k])
+        gap = (feats[k].cpu() - cpu_feats[k]).abs().max(dim=1).values.numpy()
+        far_gap = float(gap[~reached].max()) if (~reached).any() else 0.0
+        log(f"[loop] FPFH of frame {k} ({int(f.mask.sum())} points in {f.capacity} slots) card vs CPU port: "
+            f"neighbour tables equal {same_nn}; pair bins differing {flips} of {pairs} ({unexplained} not at a bin edge "
+            f"within {FPFH_EDGE_TOL} or a swap tie within {FPFH_SWAP_TIE}, must be 0); rows a flip reaches "
+            f"{int(reached.sum())}, the others' largest gap {far_gap:.3e} (bound {FPFH_HIST_TOL}); median ms "
+            f"{ms:.3f} over {FPFH_REPS} calls (host clock, synchronized)")
+        if not same_nn or unexplained or far_gap > FPFH_HIST_TOL:
+            raise AssertionError(f"loop detection: FPFH of frame {k} on the card differs from the CPU port's")
+    t, s = far
+    # feature_knn on the same (CPU port's) features
+    c_idx, c_sq, c_val = feature_knn(cpu_feats[t].cuda(), card[t].mask, cpu_feats[s].cuda(), card[s].mask)
+    h_idx, h_sq, h_val = feature_knn(cpu_feats[t], cpu[t].mask, cpu_feats[s], cpu[s].mask)
+    differ = ((c_idx.cpu() != h_idx) & h_val).numpy()[:, 0]
+    tgt, src = cpu_feats[t].double().numpy(), cpu_feats[s].double().numpy()
+    worst_tie = 0.0
+    for q in np.nonzero(differ)[0]:
+        tc, th = tgt[int(c_idx[q, 0])], tgt[int(h_idx[q, 0])]
+        scale = np.sum(src[q] ** 2) + max(np.sum(tc**2), np.sum(th**2))
+        worst_tie = max(worst_tie, abs(np.sum((src[q] - tc) ** 2) - np.sum((src[q] - th) ** 2)) / scale)
+    log(f"[loop] feature_knn on the same features, card vs CPU port: valid equal "
+        f"{torch.equal(c_val.cpu(), h_val)}, indices differing {int(differ.sum())} of {int(h_val.sum())}, each a tie "
+        f"(largest gap of the two candidates' exact distances {worst_tie:.3e} of |q|² + |t|², bound {FPFH_TIE_TOL})")
+    if not torch.equal(c_val.cpu(), h_val) or worst_tie > FPFH_TIE_TOL:
+        raise AssertionError("loop detection: feature_knn on the card differs from the CPU port's beyond ties")
+
+    def truth(pair):
+        return torch.from_numpy((np.linalg.inv(T_true[pair[0]]) @ T_true[pair[1]]).astype(np.float32)).cuda()
+
+    for name, pair, jax_pose, jax_inlier, shift_m, shift_rad in (
+            ("near", GNC_NEAR_PAIR, GNC_NEAR_JAX_POSE, GNC_NEAR_JAX_INLIER, GNC_NEAR_ORDER_SHIFT_M,
+             GNC_NEAR_ORDER_SHIFT_RAD),
+            ("far", far, GNC_JAX_POSE, GNC_JAX_INLIER, GNC_ORDER_SHIFT_M, GNC_ORDER_SHIFT_RAD)):
+        a, b = pair
+
+        def gnc():
+            return estimate_pose_gnc(card[a], card[b], feats[a], feats[b], GNCParams(), device="cuda")
+
+        res, syncs = _syncs(torch, gnc)
+        again, ms = _host_median_ms(torch, gnc)
+        same = _bits_differ(torch, (again.T_target_source,), (res.T_target_source,)) == 0
+        rot_t, trans_t = se3.pose_error(truth(pair), res.T_target_source)
+        rot, trans = se3.pose_error(_rows_to_poses(torch, [jax_pose])[0], res.T_target_source)
+        bound_m, bound_rad = _shift_bound(torch, [shift_m], [shift_rad])
+        log(f"[loop] estimate_pose_gnc {name} pair, frame {a} <- frame {b}: against the truth {float(trans_t):.6f} m "
+            f"{float(rot_t):.6f} rad, inlier rate {float(res.inlier_rate):.6f} (JAX {jax_inlier:.6f}); against the JAX "
+            f"package's pose {float(trans):.3e} m {float(rot):.3e} rad (bounds {float(bound_m[0]):.3e} m "
+            f"{float(bound_rad[0]):.3e} rad); median ms {ms:.3f} over {FPFH_REPS} calls (host clock, synchronized), "
+            f"repeats equal bit for bit {same}; synchronizing calls in one call {syncs}")
+        if not (float(trans) <= float(bound_m[0]) and float(rot) <= float(bound_rad[0])):
+            raise AssertionError(f"loop detection: the {name} GNC pose is further from the JAX package's than its bound")
+        if not same or not bool(torch.all(torch.isfinite(res.T_target_source))):
+            raise AssertionError(f"loop detection: the {name} GNC on the card is not repeatable or not finite")
+
+    # the IRLS alone on the far pair: the CPU port's matches, card against the CPU port
+    h_match, h_valid = reciprocal_matches(cpu[t], cpu[s], cpu_feats[t], cpu_feats[s])
+    c_match, c_valid = reciprocal_matches(card[t], card[s], cpu_feats[t].cuda(), cpu_feats[s].cuda())
+    moved = int(((c_match.cpu() != h_match) & (h_valid | c_valid.cpu())).sum() + (c_valid.cpu() != h_valid).sum())
+    match, valid = h_match.cuda(), h_valid.cuda()
+    T_irls, irls_syncs = _syncs(torch, lambda: gnc_irls(card[t], card[s], match, valid))
+    T_ref = gnc_irls(cpu[t], cpu[s], h_match, h_valid)
+    rot, trans = se3.pose_error(T_ref, T_irls.cpu())
+    tgt_points, weights = card[t].points[match], valid.float()
+    _, align_syncs = _syncs(torch, lambda: align_points_se3(card[s].points, tgt_points, weights))
+    log(f"[loop] the IRLS on the CPU port's far-pair matches ({int(h_valid.sum())} valid), card against the CPU port: "
+        f"{float(trans):.3e} m {float(rot):.3e} rad (bounds {GICP_BOUND_M} m {GICP_BOUND_RAD} rad); synchronizing calls "
+        f"in the IRLS {irls_syncs}, in one align_points_se3 {align_syncs}")
+    if not (float(trans) <= GICP_BOUND_M and float(rot) <= GICP_BOUND_RAD):
+        raise AssertionError("loop detection: the IRLS on the card differs from the CPU port's on the same matches")
+    # GNC's pose from the CPU port's features: the IRLS on each side's own matches (T_ref is the CPU port's)
+    T_wit = gnc_irls(card[t], card[s], c_match, c_valid)
+    rot, trans = se3.pose_error(T_ref, T_wit.cpu())
+    log(f"[loop] witness: the far pair's GNC from the CPU port's features, card against the CPU port: {float(trans):.3e} m "
+        f"{float(rot):.3e} rad; the card's reciprocal matches differ from the CPU port's in {moved} source points, "
+        f"from the feature_knn ties (recorded)")
+
+
+class _LMRecorder:
+    """Stands in for optim/isam2.optimize_lm: each call's K3 launches, its
+    graph's VGICP factors and its iterations (a tensor, read later)."""
+
+    def __init__(self, FL, real):
+        self.FL, self.real, self.calls = FL, real, []
+
+    def __call__(self, graph, poses, params=None):
+        from gtsam_points_tpu_torch.factors import VGICPFactor
+
+        before = self.FL.launches
+        res = self.real(graph, poses, params)
+        n_k3 = sum(isinstance(f, VGICPFactor) for f in graph.factors)
+        self.calls.append((self.FL.launches - before, n_k3, res.status.num_iterations))
+        return res
+
+
+def _held_stream(torch, tag: str, frames, T_true, jax_ref: dict, shift_m, shift_rad, smoother: bool, runs: int,
+                 count_syncs: bool) -> dict:
+    """Phases 26-27's stream `runs` times on the card with K3's plain version
+    barred. Run 1 records each LM call's K3 launches (they must equal its
+    iterations x its VGICP factors; the rest, two a retired VGICP factor and
+    one a realized loop edge) and, with count_syncs, the synchronizing
+    calls an update (the times are then taken from run 2); every run equal
+    to run 1 bit for bit; every update's poses held to the JAX package's
+    (jax_ref["poses"]) within GICP_BOUND_M and _RAD or GICP_SHIFT_MARGIN x
+    the update's order shift; windows, frozen keys, num_compiles and
+    compiled equal to the JAX package's. -> run 1's records, its optimizer,
+    the loop factor and the K3 launches over the runs."""
+    import contextlib
+    import warnings
+
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.optim import isam2 as isam2_mod
+    from gtsam_points_tpu_torch.utils import se3
+
+    api = _card_api(torch)
+    recorder = _LMRecorder(FL, isam2_mod.optimize_lm)
+    per_update = []
+
+    @contextlib.contextmanager
+    def around(i):
+        calls, launches = len(recorder.calls), FL.launches
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+        per_update.append((FL.launches - launches, recorder.calls[calls:], syncs))
+
+    _zero_counts(FL)
+    all_runs = []
+    with mock.patch.object(FL, "linearize_fused_plain", side_effect=AssertionError("K3's plain version ran")):
+        with mock.patch.object(isam2_mod, "optimize_lm", recorder):
+            records, isam, loop = isam2_stream(api, frames, T_true, smoother, on_update=around)
+        all_runs.append(records)
+        for _ in range(runs - 1):
+            all_runs.append(isam2_stream(api, frames, T_true, smoother)[0])
+    launches = FL.launches
+    lm_ok, lm_launches, total_run1, n_calls = True, 0, 0, 0
+    for total, calls, _ in per_update:
+        total_run1 += total
+        n_calls += len(calls)
+        for got, n_k3, iters in calls:
+            lm_launches += got
+            lm_ok &= got == int(iters) * n_k3 and int(iters) > 0
+    extra = total_run1 - lm_launches
+    extra_expected = 2 * len(isam.history_edges) + len(isam.loop_edges)
+    same = all(len(r) == len(records) and all(
+        (a["estimates"].view("int32") == b["estimates"].view("int32")).all() for a, b in zip(r, records))
+        for r in all_runs[1:])
+    gaps = []
+    for u, rows in enumerate(_stream_rows(records)):
+        rot, trans = se3.pose_error(_rows_to_poses(torch, jax_ref["poses"][u]), _rows_to_poses(torch, rows))
+        bound_m, bound_rad = _shift_bound(torch, [shift_m[u]], [shift_rad[u]])
+        gaps.append((float(trans.max()), float(rot.max()), float((trans / bound_m[0]).max()),
+                     float((rot / bound_rad[0]).max())))
+    keys_same = len(records) == len(jax_ref["poses"]) and all(
+        r[k] == jax_ref[k][u] for u, r in enumerate(records) for k in ("window", "frozen", "num_compiles", "compiled"))
+    timed = all_runs[-1] if count_syncs and runs > 1 else records
+    # the steady state: the updates before the loop that marginalize a pose out of a full window; the
+    # port runs eagerly, so an update that meets a structure new to the JAX package builds nothing here
+    steady = [r["ms"] for r, r1, r0 in zip(timed[1:-1], records[1:], records)
+              if len(r1["window"]) == ISAM2_WINDOW and len(r1["frozen"]) > len(r0["frozen"])]
+    all_ms = ", ".join(f"{r['ms']:.1f}" for r in timed)
+    moved = max(float(abs(records[-1]["estimates"][k][:3, 3] - records[-2]["estimates"][k][:3, 3]).max())
+                for k in records[-2]["frozen"])
+    syncs = f"synchronizing calls an update {[s for _, _, s in per_update]}; " if count_syncs else ""
+    log(f"[{tag}] {len(records) - 1} updates and the loop closure (0, {len(frames) - 1}), {runs} run(s): runs equal bit "
+        f"for bit {same}; K3 launches {launches} over the runs, run 1's {total_run1}: LM calls {n_calls}, each at its "
+        f"iterations x its VGICP factors {lm_ok} ({lm_launches}), the rest {extra} (2 a retired VGICP factor + 1 a "
+        f"realized loop edge = {extra_expected}), K3's plain version not called; windows, frozen keys, num_compiles and "
+        f"compiled equal to the JAX package's {keys_same} (num_compiles {records[-1]['num_compiles']}); against the JAX "
+        f"package's poses max gap {max(g[0] for g in gaps):.3e} m {max(g[1] for g in gaps):.3e} rad, the largest over "
+        f"its bound {max(g[2] for g in gaps):.3f} in m {max(g[3] for g in gaps):.3f} in rad; ms an update (host clock, "
+        f"run {len(all_runs) if timed is not records else 1}): steady-state (a pose marginalized out of a full "
+        f"window, before the loop) median "
+        f"{statistics.median(steady) if steady else float('nan'):.3f} over {len(steady)} updates, the loop update "
+        f"{timed[-1]['ms']:.3f}, all {all_ms}; {syncs}iterations {[r['iterations'] for r in records]}; the relax moved "
+        f"the frozen poses by up to {moved:.6f} m")
+    if not same:
+        raise AssertionError(f"{tag}: two card runs differ")
+    if not lm_ok or extra != extra_expected or not lm_launches:
+        raise AssertionError(f"{tag}: K3 launches differ from the LM iterations x the factors")
+    if not keys_same:
+        raise AssertionError(f"{tag}: windows, frozen keys or compiles differ from the JAX package's")
+    if max(max(g[2], g[3]) for g in gaps) > 1.0:
+        raise AssertionError(f"{tag}: an estimate is further from the JAX package's than its bound")
+    return {"records": records, "isam": isam, "loop": loop, "launches": launches}
+
+
+def phase_isam2(torch, frames, T_true) -> dict:
+    """Phase 26: the incremental_isam2_slam protocol through ISAM2Ext on the
+    card (`_held_stream`), then K3 held to its plain version (`hold_k3`) on
+    the loop factor's payload at the relaxed poses. -> K3's launches, the
+    optimizer."""
+    out = _held_stream(torch, "isam2", frames, T_true, ISAM2_JAX, ISAM2_ORDER_SHIFT_M, ISAM2_ORDER_SHIFT_RAD, False,
+                       ISAM2_RUNS, True)
+    P = _rows_to_poses(torch, [T[:3].reshape(12).tolist() for T in out["records"][-1]["estimates"]])
+    loop = out["loop"]
+    hold_k3(torch, "isam2-k3", f"loop factor {loop.keys} at the relaxed poses", loop.k3_inputs(P, loop.correspondences(P)))
+    return out
+
+
+def phase_fixed_lag(torch, frames, T_true, isam) -> dict:
+    """Phase 27: the same stream through FixedLagSmoother (`_held_stream`,
+    one run), then cg_solve on phase 26's last window system against
+    torch.linalg.solve within CG_TOL x max|x|, its iterations."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.factors.base import remap_keys
+    from gtsam_points_tpu_torch.optim import FactorGraph
+    from gtsam_points_tpu_torch.optim.solvers import cg_solve
+
+    out = _held_stream(torch, "fixed-lag", frames, T_true, FIXED_LAG_JAX, ISAM2_ORDER_SHIFT_M,
+                       ISAM2_ORDER_SHIFT_RAD, True, 1, False)
+    mapping = {k: i for i, k in enumerate(isam.window)}
+    graph = FactorGraph([remap_keys(f, mapping) for f in isam.factors], num_poses=len(isam.window))
+    poses = torch.from_numpy(np.stack([isam.estimates[k] for k in isam.window])).cuda()
+    A, b, _ = graph.linearize_full(poses)
+    x_ref = torch.linalg.solve(A, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, iters = cg_solve(A, b, return_iterations=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float((x - x_ref).abs().max() / x_ref.abs().max().clamp(min=1e-30))
+    log(f"[cg] phase 26's last window system ({A.shape[0]}x{A.shape[1]}, window {isam.window}): cg_solve against "
+        f"torch.linalg.solve {err:.3e} x max|x| (bound {CG_TOL}), iterations {int(iters)}, ms {ms:.3f} (host clock)")
+    if err > CG_TOL:
+        raise AssertionError("cg_solve differs from the dense solve")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -3559,8 +4080,15 @@ def main() -> int:
     phase_k3_payloads(torch, gicp_frames, scene["priors"][0])
     pairs = phase_gicp_pairs(torch, gicp_frames, scene["priors"][0])
     frame_to_frame = phase_frame_to_frame(torch, scene)
-    graph = phase_chain_graph(torch, scene)
+    graph, graph_frames = phase_chain_graph(torch, scene)
     phase_pose_graph(torch)
+    T_graph = scene["T_true"][:GRAPH_POSES]
+    t_back = time.perf_counter()
+    phase_loop_detection(torch, graph_frames, T_graph)
+    stream = (graph_frames[:ISAM2_POSES], T_graph[:ISAM2_POSES])
+    isam2 = phase_isam2(torch, *stream)
+    fixed_lag = phase_fixed_lag(torch, *stream, isam2["isam"])
+    log(f"[back-end] phases 25-27: {time.perf_counter() - t_back:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -3571,7 +4099,7 @@ def main() -> int:
         "launches": k3["launches"],
         "launches_by_path": {"odometry": k3["launches"], "gicp_pair": pairs["gicp"], "icp_pair": pairs["icp"],
                              "icp_plane_pair": pairs["icp_plane"], "frame_to_frame": frame_to_frame["launches"],
-                             **graph},
+                             **graph, "isam2": isam2["launches"], "fixed_lag": fixed_lag["launches"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],

@@ -26,8 +26,10 @@ class _MultiKeyAD:
         return self.pose_keys
 
     def _sub(self, poses: torch.Tensor) -> torch.Tensor:
-        """poses [..., P, 4, 4] -> the factor's poses [..., K, 4, 4]."""
-        return poses[..., list(self.pose_keys), :, :]
+        """poses [..., P, 4, 4] -> the factor's poses [..., K, 4, 4]. One
+        slice a key: indexing with a list would copy the list to the device
+        and synchronize."""
+        return torch.stack([poses[..., k, :, :] for k in self.pose_keys], dim=-3)
 
     def multi_linearize(self, poses: torch.Tensor):
         """-> (H [6K, 6K], b [6K], error ()) at poses [P, 4, 4]."""

@@ -19,9 +19,11 @@ import torch
 
 from gtsam_points_tpu_torch.factors.base import MatchingFactorMixin, relative_pose
 from gtsam_points_tpu_torch.factors.gicp import linearize_k3
+from gtsam_points_tpu_torch.factors.linearized import inv3x3
 from gtsam_points_tpu_torch.ops import fused_linearize, planar
-from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, build_voxelmap, lookup_fetch_planar
+from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, build_voxelmap, lookup_fetch, lookup_fetch_planar
 from gtsam_points_tpu_torch.types.frame import Frame
+from gtsam_points_tpu_torch.utils import se3
 
 if TYPE_CHECKING:  # registration/cluster.py imports ops that import this package
     from gtsam_points_tpu_torch.registration.cluster import SourceClusters
@@ -71,11 +73,38 @@ class VGICPFactor(MatchingFactorMixin):
         function that scores candidate poses on the same set."""
         return linearize_k3(self, poses, corr)
 
+    def linearize(self, poses: torch.Tensor):
+        """K3 on fresh correspondences at `poses`."""
+        return self.linearize_corr(poses, self.correspondences(poses))[0]
+
+    def linearize_with_error_fn(self, poses: torch.Tensor):
+        return self.linearize_corr(poses, self.correspondences(poses))
+
     def error(self, poses: torch.Tensor) -> torch.Tensor:
         found, mu, W6 = self.correspondences(poses)
         pts_p, _ = self._source_planar
         pm = planar.transform(relative_pose(self, poses), pts_p)
         return planar.weighted_error(pm - mu, W6, found)
+
+    def residual_closure(self, T_t: torch.Tensor, T_s: torch.Tensor):
+        """The AD path (`linearize_residuals` of the mixin's form): the
+        reference the K3 path is held to in the tests."""
+        delta = se3.se3_inverse(T_t) @ T_s
+        moved = se3.transform_points(delta, self.source.points)
+        found, count, mu, C_t = lookup_fetch(self.voxelmap, moved, self.source.mask)
+        found = found & (count >= self.min_voxel_points)
+        R = delta[:3, :3]
+        if self.source.covs is not None:
+            fused = C_t + torch.einsum("ij,njk,lk->nil", R, self.source.covs, R)
+        else:
+            fused = C_t + 1e-3 * torch.eye(3, dtype=C_t.dtype, device=C_t.device)
+        W = inv3x3(fused)
+
+        def residual_fn(T_t_p, T_s_p):
+            d = se3.se3_inverse(T_t_p) @ T_s_p
+            return se3.transform_points(d, self.source.points) - mu, W, found
+
+        return residual_fn
 
 
 def make_vgicp_factor(

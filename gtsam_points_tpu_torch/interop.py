@@ -1,14 +1,16 @@
 """Carry state across from the JAX package as numpy arrays.
 
 The system has no weights: its state is the voxel map, the frames, a
-scan's source clusters, a frame's hash grid, a pose graph's edges and a
-VGICP factor set. These functions take the numpy arrays of a JAX
-`GaussianVoxelMap` (its seven fields), of a `Frame` (with its normals and
-covariances), of a `SourceClusters` (its four fields), of a `HashGrid` (its
-nine arrays and its coarse level), of a `PoseGraphEdges` and of a
-`VGICPFactorBatch` (its stacked maps and frames and its keys), and build the
-port's state from them bit for bit, so both packages can start from the
-same map, search the same grid or optimize the same graph.
+scan's source clusters, a frame's hash grid, a pose graph's edges, a VGICP
+factor set and an incremental optimizer's marginal priors. These functions
+take the numpy arrays of a JAX `GaussianVoxelMap` (its seven fields), of a
+`Frame` (with its normals and covariances), of a `SourceClusters` (its four
+fields), of a `HashGrid` (its nine arrays and its coarse level), of a
+`PoseGraphEdges`, of a `VGICPFactorBatch` (its stacked maps and frames and
+its keys) and of a `MarginalPriorFactor`, and build the port's state from
+them bit for bit, so both packages can start from the same map, search the
+same grid or optimize the same graph. `isam2_to_numpy` snapshots either
+package's `ISAM2Ext` so tests can hold the two against each other.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from gtsam_points_tpu_torch._device import DeviceLike, resolve_device
 from gtsam_points_tpu_torch.factors.batch import VGICPFactorBatch
 from gtsam_points_tpu_torch.ops.hash_grid import HashGrid
 from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap
+from gtsam_points_tpu_torch.optim.incremental import MarginalPriorFactor
 from gtsam_points_tpu_torch.optim.sparse import PoseGraphEdges
 from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
@@ -58,6 +61,7 @@ _POSE_GRAPH_DTYPES = {
     "info": np.float32,
     "prior_info": np.float32,
 }
+_MARGINAL_FIELDS = ("lin_poses", "sqrt_info_t", "delta_star")
 _CLUSTER_DTYPES = {"pts_p": np.float32, "covs6": np.float32, "weight": np.float32, "mask": bool}
 
 
@@ -146,3 +150,36 @@ def vgicp_batch_from_numpy(arrays: Mapping, device: DeviceLike = None) -> VGICPF
         source_keys=_tensor(arrays["source_keys"], np.int32, dev),
         min_voxel_points=float(arrays["min_voxel_points"]),
     )
+
+
+def marginal_prior_from_numpy(arrays: Mapping, device: DeviceLike = None) -> MarginalPriorFactor:
+    """`arrays`: lin_poses [K, 4, 4], sqrt_info_t [6K, 6K], delta_star [6K]
+    and pose_keys (a JAX `MarginalPriorFactor`'s fields)."""
+    dev = resolve_device(device)
+    return MarginalPriorFactor(**{k: _tensor(arrays[k], np.float32, dev) for k in _MARGINAL_FIELDS},
+                               pose_keys=tuple(int(k) for k in arrays["pose_keys"]))
+
+
+def marginal_prior_to_numpy(f) -> dict:
+    """A marginal prior's fields as numpy arrays and its keys as a tuple.
+    Takes the port's `MarginalPriorFactor` or the JAX one."""
+    return {**{k: _numpy(getattr(f, k)) for k in _MARGINAL_FIELDS}, "pose_keys": tuple(int(k) for k in f.pose_keys)}
+
+
+def isam2_to_numpy(isam) -> dict:
+    """The state of an `ISAM2Ext` (the port's or the JAX one) as numpy:
+    estimates {key: 4x4}, window, frozen keys, history and loop edges (t, s,
+    measured, info), history priors (key, T, w), num_values, num_compiles,
+    and each active `MarginalPriorFactor`'s fields in the order of the
+    factor list."""
+    return {
+        "estimates": {int(k): np.asarray(v, np.float32) for k, v in isam.estimates.items()},
+        "window": [int(k) for k in isam.window],
+        "frozen": sorted(int(k) for k in isam.frozen),
+        "history_edges": [(int(t), int(s), np.asarray(m), np.asarray(i)) for t, s, m, i in isam.history_edges],
+        "loop_edges": [(int(t), int(s), np.asarray(m), np.asarray(i)) for t, s, m, i in isam.loop_edges],
+        "history_priors": [(int(k), np.asarray(T), np.asarray(w)) for k, T, w in isam.history_priors],
+        "num_values": int(isam.num_values),
+        "num_compiles": int(isam.num_compiles),
+        "marginal_priors": [marginal_prior_to_numpy(f) for f in isam.factors if type(f).__name__ == "MarginalPriorFactor"],
+    }

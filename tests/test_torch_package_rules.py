@@ -14,12 +14,15 @@ import pytest
 import torch
 
 import gtsam_points_tpu_torch
+from gtsam_points_tpu_torch.factors import PriorFactor
 from gtsam_points_tpu_torch.ops.voxelmap import empty_voxelmap
+from gtsam_points_tpu_torch.optim import FixedLagSmoother, ISAM2Ext
 from gtsam_points_tpu_torch.pipelines.odometry import (
     OdometryParams,
     init_odometry,
     make_odometry_stepper,
 )
+from gtsam_points_tpu_torch.registration import GNCParams, estimate_fpfh, estimate_pose_gnc
 from gtsam_points_tpu_torch.types.frame import make_frame
 
 torch.set_num_threads(1)
@@ -70,6 +73,28 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert state.vmap.keys.device.type == "cpu"
     with pytest.raises(ValueError):
         init_odometry(frame, OdometryParams(map_capacity=1024), device="meta")
+    # the incremental back end and loop detection, the same way
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ISAM2Ext(window_size=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FixedLagSmoother(lag=2.5)
+    assert ISAM2Ext(window_size=3, device="cpu").device.type == "cpu"
+    assert FixedLagSmoother(lag=2.5, device="cpu")._isam.device.type == "cpu"
+    with pytest.raises(ValueError):
+        ISAM2Ext(window_size=3, device="cpu").update(
+            [PriorFactor(prior=torch.eye(4, device="meta"), weights=torch.ones(6, device="meta"), key=0)])
+    pts = torch.rand(64, 3, generator=torch.Generator().manual_seed(0)).numpy() * 4.0
+    nframe = make_frame(pts, normals=[[0.0, 0.0, 1.0]] * 64, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        estimate_fpfh(nframe)
+    feats = estimate_fpfh(nframe, k=8, device="cpu")
+    assert feats.shape == (nframe.capacity, 33) and feats.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        estimate_pose_gnc(nframe, nframe, feats, feats)
+    with pytest.raises(ValueError):
+        estimate_pose_gnc(nframe, nframe, feats, feats.to("meta"), device="cpu")
+    res = estimate_pose_gnc(nframe, nframe, feats, feats, GNCParams(max_iterations=2), device="cpu")
+    assert res.T_target_source.device.type == "cpu"
 
 
 def test_float32_pins():

@@ -974,6 +974,160 @@ def pose_graph_order_shift(n_poses: int, n_orders: int) -> dict:
     return r
 
 
+def _isam2_api(package: str) -> dict:
+    """chip_smoke.isam2_stream's names for one package, on the CPU."""
+    if package == "jax":
+        from gtsam_points_tpu.factors import PriorFactor, make_vgicp_factor
+        from gtsam_points_tpu.optim import FixedLagSmoother, ISAM2Ext, LMParams
+
+        return {"ISAM2Ext": ISAM2Ext, "FixedLagSmoother": FixedLagSmoother, "LMParams": LMParams,
+                "PriorFactor": PriorFactor, "make_vgicp_factor": make_vgicp_factor,
+                "arr": lambda x: jax.numpy.asarray(np.asarray(x, np.float32)), "kw": {}}
+    from gtsam_points_tpu_torch.factors import PriorFactor, make_vgicp_factor
+    from gtsam_points_tpu_torch.optim import FixedLagSmoother, ISAM2Ext, LMParams
+
+    return {"ISAM2Ext": ISAM2Ext, "FixedLagSmoother": FixedLagSmoother, "LMParams": LMParams,
+            "PriorFactor": PriorFactor, "make_vgicp_factor": make_vgicp_factor,
+            "arr": lambda x: torch.from_numpy(np.array(x, dtype=np.float32)), "kw": {"device": "cpu"}}
+
+
+STREAMS = ("isam2", "fixed_lag")
+
+
+def _isam2_streams(package: str, scans, T_true) -> dict:
+    """Phases 26-27's streams on one package -> stream: the records."""
+    frames = _graph_frames(package, scans)
+    api = _isam2_api(package)
+    return {name: chip_smoke.isam2_stream(api, frames, T_true, smoother=name == "fixed_lag")[0] for name in STREAMS}
+
+
+def _stream_gaps(a, b) -> tuple:
+    """Per update the largest (m, rad) gap between two runs' moved poses."""
+    m, rad = [], []
+    for ra, rb in zip(chip_smoke._stream_rows(a), chip_smoke._stream_rows(b)):
+        bottom = np.broadcast_to(np.asarray([0, 0, 0, 1], np.float32), (len(ra), 1, 4))
+        pa = np.concatenate([np.asarray(ra, np.float32).reshape(-1, 3, 4), bottom], 1)
+        pb = np.concatenate([np.asarray(rb, np.float32).reshape(-1, 3, 4), bottom], 1)
+        rot, trans = tse3.pose_error(torch.from_numpy(pa), torch.from_numpy(pb))
+        m.append(float(trans.max()))
+        rad.append(float(rot.max()))
+    return m, rad
+
+
+def compare_isam2(n_poses: int) -> dict:
+    """Phases 26-27 in both packages on the CPU -> per stream: per-update
+    gaps, the JAX records in chip_smoke's form, seconds."""
+    T_true, scans = cluster_scans(n_poses)
+    t0 = time.perf_counter()
+    j = _isam2_streams("jax", scans, T_true)
+    t1 = time.perf_counter()
+    t = _isam2_streams("torch", scans, T_true)
+    t2 = time.perf_counter()
+    r = {"poses": n_poses, "seconds_jax": t1 - t0, "seconds_torch": t2 - t1}
+    for name in STREAMS:
+        gap_m, gap_rad = _stream_gaps(j[name], t[name])
+        same = {k: [x[k] for x in t[name]] == [x[k] for x in j[name]]
+                for k in ("window", "frozen", "num_compiles", "compiled")}
+        r[name] = {"gap_m": gap_m, "gap_rad": gap_rad, "same": same,
+                   "jax": {k: [x[k] for x in j[name]] for k in ("window", "frozen", "num_compiles", "compiled")},
+                   "jax_poses": chip_smoke._stream_rows(j[name]),
+                   "iters_jax": [x["iterations"] for x in j[name]], "iters_torch": [x["iterations"] for x in t[name]],
+                   "ms_torch": [x["ms"] for x in t[name]]}
+    return r
+
+
+def isam2_summary(r: dict) -> str:
+    return f"ISAM2 and fixed-lag streams, {r['poses']} poses: " + "; ".join(
+        f"{name}: max gap {max(r[name]['gap_m']):.6e} m {max(r[name]['gap_rad']):.6e} rad (per update "
+        + ", ".join(f"{x:.2e}" for x in r[name]["gap_m"]) + f"), equal {r[name]['same']}, num_compiles "
+        f"{r[name]['jax']['num_compiles'][-1]}, iterations jax {r[name]['iters_jax']} port {r[name]['iters_torch']}"
+        for name in STREAMS
+    ) + f"; {r['seconds_jax']:.1f} s / {r['seconds_torch']:.1f} s"
+
+
+def isam2_order_shift(n_poses: int, n_orders: int) -> dict:
+    """The JAX package alone: phases 26-27 again with every scan's points in
+    `n_orders` other orders (RandomState(600 + i)) -> per stream the
+    per-update shift of the moved poses, per order."""
+    T_true, scans = cluster_scans(n_poses)
+    base = _isam2_streams("jax", scans, T_true)
+    r = {"orders": n_orders, **{name: {"shift_m": [], "shift_rad": []} for name in STREAMS}}
+    for i in range(n_orders):
+        rng = np.random.RandomState(600 + i)
+        other = _isam2_streams("jax", [s[rng.permutation(len(s))] for s in scans], T_true)
+        for name in STREAMS:
+            m, rad = _stream_gaps(base[name], other[name])
+            r[name]["shift_m"].append(m)
+            r[name]["shift_rad"].append(rad)
+    return r
+
+
+def _same_but_compiled(a: dict, b: dict) -> bool:
+    """Two streams' JAX records equal but for `compiled`."""
+    return all(a["jax"][k] == b["jax"][k] for k in a["jax"] if k != "compiled") and len(a["jax_poses"]) == len(
+        b["jax_poses"]) and all(np.array_equal(x, y) for x, y in zip(a["jax_poses"], b["jax_poses"]))
+
+
+def _print_stream(name: str, r: dict) -> None:
+    """A stream's JAX records as chip_smoke.py keeps them."""
+    print(f"{name} = {{", flush=True)
+    for k, v in r["jax"].items():
+        print(f'    "{k}": {v!r},')
+    print('    "poses": [')
+    for rows in r["jax_poses"]:
+        print("        [" + ", ".join("[" + ", ".join(np.format_float_positional(np.float32(x), unique=True)
+                                                      for x in p) + "]" for p in rows) + "],")
+    print("    ],\n}", flush=True)
+
+
+def _gnc(package: str, scans, pair):
+    """Phase 25 on one package: FPFH of the pair's frames, GNC between
+    them -> (T [4, 4], inlier rate)."""
+    a, b = _graph_frames(package, [scans[k] for k in pair])
+    if package == "jax":
+        from gtsam_points_tpu.registration import GNCParams, estimate_fpfh, estimate_pose_gnc
+
+        fa, fb = jax.jit(estimate_fpfh)(a), jax.jit(estimate_fpfh)(b)
+        res = jax.jit(lambda: estimate_pose_gnc(a, b, fa, fb, GNCParams()))()
+    else:
+        from gtsam_points_tpu_torch.registration import GNCParams, estimate_fpfh, estimate_pose_gnc
+
+        fa, fb = estimate_fpfh(a, device="cpu"), estimate_fpfh(b, device="cpu")
+        res = estimate_pose_gnc(a, b, fa, fb, GNCParams(), device="cpu")
+    return np.asarray(res.T_target_source), float(res.inlier_rate)
+
+
+def compare_gnc(n_poses: int, pair) -> dict:
+    """Phase 25 in both packages on the CPU, on scans `pair` of n_poses ->
+    the gap, the JAX pose and inlier rate, both against the truth."""
+    T_true, scans = cluster_scans(n_poses)
+    j, jr = _gnc("jax", scans, pair)
+    t, tr = _gnc("torch", scans, pair)
+    truth = (np.linalg.inv(T_true[pair[0]]) @ T_true[pair[1]]).astype(np.float32)
+    gap = tse3.pose_error(torch.from_numpy(j), torch.from_numpy(t))
+    tj = tse3.pose_error(torch.from_numpy(truth), torch.from_numpy(j))
+    tt = tse3.pose_error(torch.from_numpy(truth), torch.from_numpy(t))
+    return {"pair": list(pair), "gap_m": float(gap[1]), "gap_rad": float(gap[0]), "jax_pose": _pose_rows([j])[0],
+            "inlier_jax": jr, "inlier_torch": tr, "truth_jax": (float(tj[1]), float(tj[0])),
+            "truth_torch": (float(tt[1]), float(tt[0]))}
+
+
+def gnc_order_shift(n_poses: int, pair, n_orders: int) -> dict:
+    """The JAX package alone: phase 25 on scans `pair` with the scans'
+    points in `n_orders` other orders (RandomState(600 + i)) -> the pose's
+    shift per order."""
+    T_true, scans = cluster_scans(n_poses)
+    base, _ = _gnc("jax", scans, pair)
+    r = {"pair": list(pair), "orders": n_orders, "shift_m": [], "shift_rad": []}
+    for i in range(n_orders):
+        rng = np.random.RandomState(600 + i)
+        other, _ = _gnc("jax", [s[rng.permutation(len(s))] for s in scans], pair)
+        rot, trans = tse3.pose_error(torch.from_numpy(base), torch.from_numpy(other))
+        r["shift_m"].append(float(trans))
+        r["shift_rad"].append(float(rot))
+    return r
+
+
 def _print_rows(name: str, rows_by_run: dict) -> None:
     """Poses (top three rows, row-major) by run, as chip_smoke.py keeps them."""
     print(f"{name} = {{", flush=True)
@@ -1093,6 +1247,15 @@ def main() -> int:
     parser.add_argument("--graph-order-package", choices=("jax", "torch"), default="jax",
                         help="the package that runs the other orders of --graph-orders (the shift is taken "
                              "against the JAX package's run in the scans' own order)")
+    parser.add_argument("--isam2", type=int, default=0,
+                        help="phases 26-27's ISAM2 and fixed-lag streams over this many scans, both packages (0: none)")
+    parser.add_argument("--isam2-orders", type=int, default=0,
+                        help="other point orders of the scans for the JAX streams' order shift (0: none)")
+    parser.add_argument("--gnc", type=int, default=0,
+                        help="phase 25's FPFH and GNC between scan 0 and scan N - 1 of N scans, and between "
+                             "chip_smoke.GNC_NEAR_PAIR, both packages (0: none)")
+    parser.add_argument("--gnc-orders", type=int, default=0,
+                        help="other point orders of the scans for the JAX GNC pose's order shift (0: none)")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -1179,6 +1342,40 @@ def main() -> int:
         print(gicp_order_summary(r, ["pose_graph"]), flush=True)
         _print_gicp_shifts(r, "PG_ORDER_SHIFT", ["pose_graph"])
         report.append(r)
+    if args.isam2:
+        r = compare_isam2(args.isam2)
+        print(isam2_summary(r), flush=True)
+        _print_stream("ISAM2_JAX", r["isam2"])
+        if _same_but_compiled(r["fixed_lag"], r["isam2"]):
+            print(f'FIXED_LAG_JAX = {{**ISAM2_JAX, "compiled": {r["fixed_lag"]["jax"]["compiled"]!r}}}', flush=True)
+        else:
+            _print_stream("FIXED_LAG_JAX", r["fixed_lag"])
+        report.append(r)
+    if args.isam2_orders and args.isam2:
+        r = isam2_order_shift(args.isam2, args.isam2_orders)
+        for unit in ("m", "rad"):
+            worst = np.asarray(r["isam2"][f"shift_{unit}"]).max(0)
+            print(f"ISAM2_ORDER_SHIFT_{unit.upper()} = [" + ", ".join(f"{x:.3e}" for x in worst) + "]", flush=True)
+            lag = np.asarray(r["fixed_lag"][f"shift_{unit}"]).max(0)
+            # phase 27 holds the smoother to the window's order shifts
+            print(f"fixed-lag order shift ({unit}) " + ("equal to the window's" if np.array_equal(lag, worst) else
+                  "[" + ", ".join(f"{x:.3e}" for x in lag) + "]"), flush=True)
+        report.append(r)
+    # phase 25's far pair (scan 0 and the last) and its near pair
+    for name, pair in (("GNC", (0, args.gnc - 1)), ("GNC_NEAR", chip_smoke.GNC_NEAR_PAIR)) if args.gnc else ():
+        r = compare_gnc(args.gnc, pair)
+        print(f"GNC, scan {pair[0]} <- scan {pair[1]}: port against JAX {r['gap_m']:.6e} m {r['gap_rad']:.6e} rad; "
+              f"inlier rate jax {r['inlier_jax']:.6f} port {r['inlier_torch']:.6f}; against the truth jax "
+              f"{r['truth_jax']} port {r['truth_torch']}", flush=True)
+        print(f"{name}_JAX_POSE = [" + ", ".join(np.format_float_positional(np.float32(x), unique=True)
+                                                  for x in r["jax_pose"]) + "]")
+        print(f"{name}_JAX_INLIER = {r['inlier_jax']!r}", flush=True)
+        report.append(r)
+        if args.gnc_orders:
+            r = gnc_order_shift(args.gnc, pair, args.gnc_orders)
+            print(f"{name}_ORDER_SHIFT_M = {max(r['shift_m']):.3e}\n{name}_ORDER_SHIFT_RAD = "
+                  f"{max(r['shift_rad']):.3e} (per order {r['shift_m']})", flush=True)
+            report.append(r)
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
         print(odometry_order_summary(r), flush=True)
