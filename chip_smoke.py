@@ -185,6 +185,31 @@ Phases, each of which ends the run with a nonzero exit if it fails:
  27. the same stream through FixedLagSmoother (3 poses kept) ending with
      add_factors([loop]), held the same way; cg_solve on phase 26's last
      window system against torch.linalg.solve;
+ 28. global registration (demo_global_registration) on phase 25's frames
+     and FPFH, pairs (0, 1) and (0, 15): estimate_pose_ransac with 8192
+     hypotheses on the card's features (timed, synchronizing calls
+     counted), and on the CPU port's features and the generator's draws
+     against the CPU port (within 1e-4 m and 1e-4 rad, or a tie); the GICP
+     refine (unary GICP, 15 LM iterations) from the CPU port's RANSAC pose
+     and from the JAX GNC pose, on K3 (launches = iterations, its plain
+     version barred), against the JAX package's refined poses, and from
+     the card's own RANSAC pose (the demo's chain) against the refine from
+     the CPU port's pose, K3 held to its plain version on the refine's
+     payload; voxelmap_overlap and
+     overlap_auto of the refined pairs against the CPU port, equal;
+ 29. LOAM (with and without scan-line validation) and CT-ICP (GICP, ICP,
+     point to plane; then deskew, the RMSE before and after) on a
+     scan-size scene (scan_world: 20k plane and 3k edge points a scan),
+     every pose against the JAX package's (LOAM's within 1e-3 m and
+     1e-3 rad, its validated-to-plain gap within that of the JAX
+     package's gap);
+ 30. bundle adjustment (demo_bundle_adjustment) on 5 keyframes of that
+     scene, 12 plane and 8 edge features, EVM and LSQ, every pose against
+     the JAX package's, the demo's error report;
+ 31. the data model on the card against the CPU port bit for bit:
+     merge_frames, pad_frame, sort_by_voxel_key and sample with aux
+     attributes, insert_frame_fast into phase 4's map, a save_voxelmap /
+     load_voxelmap round trip;
 then one JSON line for all five kernels (K3, K1, K4, K2, K5; K3's and K1's
 launches on each of their paths) and, last, the device line.
 
@@ -859,6 +884,119 @@ GNC_NEAR_JAX_INLIER = 0.996920645236969
 GNC_NEAR_ORDER_SHIFT_M = 4.345e-03
 GNC_NEAR_ORDER_SHIFT_RAD = 1.294e-04
 
+# Phases 29-30's scene (scan_world): the ring world's walls and floor as
+# plane points (SCAN_WORLD_N points before its round pillars are dropped)
+# and SCAN_FINS flat radial fins (2 x SCAN_FIN_HALF m wide, 3 m tall), whose
+# faces add plane points and whose two vertical ends carry
+# SCAN_EDGE_PER_LINE edge points each with SCAN_EDGE_NOISE m of noise; a
+# scan is the SCAN_PLANE_N nearest plane points and the SCAN_EDGE_N nearest
+# edge points of a pose of ring_trajectory(lap=100).
+SCAN_WORLD_N = 100_000
+SCAN_FINS = 40
+SCAN_FIN_HALF = 1.25
+SCAN_EDGE_PER_LINE = 100
+SCAN_EDGE_NOISE = 0.01
+SCAN_PLANE_N = 20_000
+SCAN_EDGE_N = 3_000
+SCAN_SEED = 4
+# phase 28: RANSAC (demo_global_registration: 8192 hypotheses) on phase 25's
+# pairs, then the demo's GICP refine (unary GICP, max corr 2.0, 15 LM
+# iterations) from a coarse pose.
+RANSAC_ITERATIONS = 8192
+RANSAC_TOL_M = 1e-4
+RANSAC_TOL_RAD = 1e-4
+REFINE_MAX_CORR = 2.0
+REFINE_ITERATIONS = 15
+# The references (tests/test_torch_real_size.py --ransac 16 --ransac-orders 3,
+# JAX_PLATFORMS=cpu): the JAX package's RANSAC from its own threefry draws
+# (printed beside the card's, not held: torch cannot draw them), the CPU
+# port's RANSAC pose from the generator seeded with RANSACParams().seed on
+# the CPU port's frames and FPFH (the refine's RANSAC start; the JAX GNC
+# pose is its GNC start), the JAX package's refined pose from each start,
+# and its largest shift (m, rad) with the scans' points in 3 other orders.
+# On the CPU the port's refines lie 1.9e-6 and 2.3e-4 m (far pair) and
+# 2.4e-7 and 7.5e-9 m (near pair) from JAX's.
+RANSAC_JAX = {
+    "near": {"pose": [0.995481, -0.09492838, -0.0025381402, 2.3104696, 0.09491669, 0.99547595, -0.0043433085, -0.08420277, 0.0029390864, 0.004082692, 0.9999875, -0.12882915], "inlier": 0.9185888767242432},
+    "far": {"pose": [0.99836266, -0.056884203, 0.0059942557, 1.4413857, 0.05684121, 0.9983578, 0.007127323, 0.5232105, -0.0063898424, -0.006774919, 0.9999566, 0.22175306], "inlier": 0.7978141903877258},
+}
+RANSAC_START = {
+    "near": [0.9955944, -0.093754694, 0.0015303455, 1.3428094, 0.09376596, 0.99553114, -0.011221409, 0.7894306, -0.0004714392, 0.011315443, 0.99993616, -0.08416349],
+    "far": [0.52602196, -0.85041, 0.010199312, 18.805199, 0.85046226, 0.52603364, -0.0017296672, 9.190103, -0.0038942322, 0.009583972, 0.99994683, -0.013501227],
+}
+REFINE_JAX = {
+    "near": {"ransac": [0.99803704, -0.06262815, -0.000020075167, 1.3780985, 0.06262811, 0.99803704, -0.0000033498097, 0.042530835, 0.000020238453, 0.0000020679995, 1.0000004, -0.00013985485],
+             "gnc": [0.99803716, -0.06262814, -0.000020079106, 1.3780992, 0.062628105, 0.9980371, -0.0000033065019, 0.042531338, 0.000020239022, 0.0000020742416, 1.0000005, -0.00013995916]},
+    "far": {"ransac": [0.587703, -0.80907685, 0.0000072335006, 17.800537, 0.80907685, 0.5877031, 0.000029315144, 9.066589, -0.000027971286, -0.000011380013, 1.0000004, 0.00007674098],
+            "gnc": [0.9660766, -0.25825593, -0.00006046701, 5.6835976, 0.25825584, 0.9660763, 0.00011347399, 0.74386746, 0.000029111465, -0.00012523361, 0.99999976, 0.0011733789]},
+}
+REFINE_ORDER_SHIFT = {'near': {'ransac': [2.243e-07, 7.501e-09], 'gnc': [5.093e-07, 9.606e-09]}, 'far': {'ransac': [0.0, 1.042e-09], 'gnc': [0.0002321, 1.069e-05]}}
+# phase 29, LOAM: scans 0 and 1 (tests/test_loam_newer01.py's settings):
+# make_loam_factor with grid leaf 2.0 and the default max_points_per_cell
+# (both packages' grids keep 16 points a cell, whatever it says), a
+# PriorFactor of 1e6 on key 0, LOAM_ITERATIONS LM iterations from the
+# identity, with and without scan-line validation. Both packages get the
+# scans' points in the same order, so the LOAM poses are held to the floor
+# (GICP_BOUND_M, _RAD) alone, not to the order shift, and the card's gap
+# between its validated and plain poses to the JAX package's gap within the
+# same floor: validation moves the pose by ~5e-3 m here.
+LOAM_GRID_LEAF = 2.0
+LOAM_MAX_CORR = 2.0
+LOAM_PRIOR_WEIGHT = 1e6
+LOAM_ITERATIONS = 30
+# phase 29, CT-ICP (demo_continuous_time's protocol): the target is scan 0
+# (planes and edges), the source the same surfaces sampled again
+# (noise seed SCAN_SEED + 10) and seen while the sensor moves by
+# Exp(CT_MOTION) over the sweep (0.15 m and 0.02 rad: a handheld sensor,
+# as the demo's newer_06); kNN features (k = 20, leaf 0.5);
+# make_ct_icp_factor(0, 1, max_corr_dist 1.0, grid_leaf CT_GRID_LEAF), a
+# PriorFactor of 1e3 on key 0, CT_ITERATIONS LM iterations from the
+# identity, then deskew; the GICP mode is the demo's, ICP and point to plane
+# the other two. The grid leaf is 0.5, not the default 1.0: both packages'
+# grids keep 16 points a cell, and a 1 m cell of this scan holds up to ~55,
+# which leaves nearest neighbours a cell's width apart and moves the optimum
+# 0.1-0.2 m off the truth.
+CT_MOTION = (0.0, 0.0, 0.02, 0.15, 0.02, 0.0)
+CT_FEATURE_K = 20
+CT_FEATURE_LEAF = 0.5
+CT_GRID_LEAF = 0.5
+CT_MAX_CORR = 1.0
+CT_PRIOR_WEIGHT = 1e3
+CT_ITERATIONS = 30
+CT_MODES = ("gicp", "icp", "plane")
+# The JAX package's phase-29 poses (tests/test_torch_real_size.py --loam
+# --ct-icp --scan-orders 3, JAX_PLATFORMS=cpu): LOAM's pose 1, CT-ICP's
+# begin and end poses; and their largest shift with every cloud's points in
+# 3 other orders. The CPU port's lie 1.1e-8 to 2.6e-6 m from them; JAX's
+# LOAM lands 0.037 m from the truth, its CT-ICP sweeps within 1e-3 m.
+SCAN_JAX_POSES = {
+    "loam_plain": [0.9981271, -0.061173193, -0.00034235438, 1.3530073, 0.06117411, 0.99811804, 0.0042478647, 0.025909772, 0.00008184826, -0.0042608595, 0.99999094, 0.008569069],
+    "loam_validated": [0.9981352, -0.061041776, 0.0002284242, 1.3492532, 0.06104018, 0.9981257, 0.0043801805, 0.025550894, -0.0004953835, -0.00435807, 0.99999034, 0.0050551635],
+    "ct_gicp": [[1., -0.000010486266, -0.00001158305, 0.00035226985, 0.00001048925, 1., 0.00012111267, -0.00031376368, 0.000011589032, -0.0001211137, 1., -0.00068669923], [0.9997999, -0.020006683, -0.0000816164, 0.14973415, 0.02000667, 0.99979985, -0.00017858295, 0.021767769, 0.000085173815, 0.00017691804, 1., 0.00043958772]],
+    "ct_icp": [[1., 0.00001094194, 0.000034129167, 0.00021203925, -0.000010941491, 0.99999994, 0.0000010783851, 0.000040244337, -0.000034110315, -0.0000010763933, 1., -0.0002967396], [0.9998004, -0.019977491, -0.00004189183, 0.14971091, 0.01997749, 0.9998004, -0.00004057438, 0.021352313, 0.00004269579, 0.000039731505, 1., 0.00015021842]],
+    "ct_plane": [[1., -0.0000034332718, -0.000037028836, 0.00006953456, 0.0000034322334, 1., -0.000014731945, 0.000045114368, 0.00003702848, 0.0000147320525, 1., -0.00023246901], [0.99980015, -0.019992573, -0.000042466367, 0.14968015, 0.019992571, 0.99980015, -0.00011034614, 0.021469293, 0.000044671244, 0.0001094734, 1., 0.00024349273]],
+}
+SCAN_ORDER_SHIFT = {'loam_plain': [0.02314, 0.003334], 'loam_validated': [0.0163, 0.003247], 'ct_gicp': [0.0005564, 0.0001005], 'ct_icp': [0.0004678, 6.987e-05], 'ct_plane': [0.0006308, 0.0001007]}
+# phase 30: demo_bundle_adjustment's protocol on BA_KEYS keyframes
+BA_KEYS = 5
+BA_PLANES = 12
+BA_EDGES = 8
+BA_MAX_POINTS = 256
+BA_SIGMA = 0.03
+BA_EIGEN_GAP = 10.0
+BA_ITERATIONS = 25
+# The JAX package's BA poses (tests/test_torch_real_size.py --ba --ba-orders 3,
+# JAX_PLATFORMS=cpu; 12 plane and 8 edge features; 5 and 6 LM iterations)
+# and their largest shift with each feature's points in 3 other orders. The
+# CPU port's lie 2.0e-6 m (EVM) and 2.8e-6 m (LSQ) from them; against the
+# truth JAX's EVM poses are 4.8e-4 m off, its LSQ poses (planes alone)
+# 0.0372 m.
+BA_JAX_POSES = {
+    "evm": [[0.0000000012768101, -1., 0.00000000074645096, 22., 1., 0.0000000012768087, 0.00000000042569656, 0.000000000073819346, -0.00000000042569656, 0.00000000074645184, 1., 0.5], [-0.06279997, -0.99802613, -0.000009276452, 21.956587, 0.99802625, -0.06279999, -0.0000031469008, 1.3813907, 0.0000025336653, -0.000009446689, 0.99999994, 0.50000083], [-0.12534556, -0.99211305, -0.0000118994285, 21.826565, 0.9921132, -0.12534556, -0.00000550246, 2.757365, 0.000003978874, -0.000012499439, 0.9999998, 0.50017864], [-0.18739843, -0.98228383, -0.00018015655, 21.610561, 0.982284, -0.18739845, -0.000009815897, 4.1223416, -0.000024125695, -0.00017881524, 0.99999994, 0.50014055], [-0.24869452, -0.968582, 0.000032044627, 21.308668, 0.9685819, -0.24869457, 0.000008021364, 5.471106, 0.00000019008334, 0.000033019074, 0.99999994, 0.5004475]],
+    "lsq": [[0.0000000021022744, -1., 0.00000000088431995, 22., 1., 0.000000002102274, 0.0000000007617533, 0.0000000000859932, -0.0000000007617533, 0.00000000088431995, 1., 0.5], [-0.06280506, -0.99802583, -0.000009825141, 21.956585, 0.99802595, -0.062805034, -0.0000016520232, 1.3813906, 0.0000010178678, -0.000009892857, 1., 0.5000008], [-0.12540078, -0.99210596, 0.0004772895, 21.825142, 0.9921062, -0.12540077, 0.000011969065, 2.7575912, 0.000047995873, 0.00047501345, 0.99999976, 0.49848267], [-0.18754409, -0.98224914, 0.0037050259, 21.599106, 0.982256, -0.1875448, 0.00015099789, 4.122401, 0.0005465285, 0.0036676032, 0.99999326, 0.4878462], [-0.24904849, -0.9684496, 0.008948303, 21.281202, 0.9684895, -0.249054, 0.00051118823, 5.4723735, 0.0017335562, 0.008793659, 0.9999599, 0.4750857]],
+}
+BA_ORDER_SHIFT = {'evm': [1.97e-06, 5.493e-08], 'lsq': [5.156e-06, 7.868e-07]}
+
 # K2 (the batched unary linearize) raced as the batched dispatch gate of
 # scripts/tpu_parity.py races it: B = 64 lanes over one 25088-slot source,
 # min_voxel_points 3 and eps 1e-3, lane b at se3_exp(K1_TWIST) with its
@@ -1325,6 +1463,7 @@ def phase_main_path(torch, profile: Optional[str], k3_payloads: dict):
         log(f"[main] K3 on phase 3's {name} payload: device "
             f"{'not measured' if us is None else f'{us:.3f} us'} per launch pair")
     r["launches"] = launches
+    r["map"] = (state.vmap, frames[-1], poses[-1])
     return scans, frames, priors, r
 
 
@@ -1543,8 +1682,7 @@ def phase_plain_vs_cuda(torch, frames, priors) -> None:
 
 
 def _to_card(frame):
-    return frame.replace(**{f.name: getattr(frame, f.name).cuda()
-                            for f in dataclasses.fields(frame) if getattr(frame, f.name) is not None})
+    return _frame_to(frame, "cuda")
 
 
 def _pyramid_inputs(torch, scans, prior, device: str):
@@ -2528,10 +2666,199 @@ def pose_graph_arrays(n_poses: int = PG_POSES, lap: int = PG_LAP, seed: int = PG
     return T, arrays, np.stack(start).astype(np.float32)
 
 
+def scan_world(plane_n: int = SCAN_WORLD_N, per_line: int = SCAN_EDGE_PER_LINE, seed: int = SCAN_SEED):
+    """Phases 29-30's world (numpy). SCAN_FINS flat vertical fins, 3 m tall
+    and 2 x SCAN_FIN_HALF m wide, stand radially in the ring world's
+    corridor. The plane points are the ring world's walls and floor
+    (`ring_world(0, plane_n)` without its round pillars) and the fins'
+    faces, `per_line` x 3 points a fin with 0.01 m of noise across it: a
+    fin faces along the corridor, which the walls and the floor leave free
+    (a bundle adjustment of planes alone would slide each keyframe along
+    it). The edge points are the fins' two vertical ends, `per_line` points
+    each over z in [0, 3], with SCAN_EDGE_NOISE m of noise. Both clouds come
+    shuffled. -> (planes [M, 3], edges [L, 3])."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.utils.synthetic import ring_world
+
+    rng = np.random.RandomState(seed)
+    th = rng.rand(SCAN_FINS) * 2 * np.pi
+    radial = np.stack([np.cos(th), np.sin(th)], 1)
+    normal = np.stack([-np.sin(th), np.cos(th)], 1)
+    centre = radial * (19.5 + rng.rand(SCAN_FINS) * 5.0)[:, None]
+    ends = centre[:, None] + np.array([-1.0, 1.0])[None, :, None] * SCAN_FIN_HALF * radial[:, None]
+    xy = ends.reshape(-1, 2)
+    z = rng.rand(len(xy), per_line) * 3.0
+    edges = np.concatenate([np.repeat(xy[:, None], per_line, 1), z[..., None]], -1).reshape(-1, 3)
+    edges = edges + rng.randn(*edges.shape) * SCAN_EDGE_NOISE
+    per_fin = per_line * 3
+    u = (rng.rand(SCAN_FINS, per_fin) * 2 - 1) * SCAN_FIN_HALF
+    across = rng.randn(SCAN_FINS, per_fin) * 0.01
+    fxy = centre[:, None] + u[..., None] * radial[:, None] + across[..., None] * normal[:, None]
+    fins = np.concatenate([fxy, rng.rand(SCAN_FINS, per_fin, 1) * 3.0], -1).reshape(-1, 3)
+    planes = np.concatenate([ring_world(0, plane_n)[: 3 * (plane_n // 4)], fins])
+    # in no spatial order, as a LiDAR's points are: a grid cell keeps its first
+    # 16 points, which are then a sample of every surface or edge the cell holds
+    return planes[rng.permutation(len(planes))].astype(np.float32), edges[rng.permutation(len(edges))].astype(np.float32)
+
+
+def scan_clouds(world, T_list, plane_n: int = SCAN_PLANE_N, edge_n: int = SCAN_EDGE_N, seed: int = SCAN_SEED):
+    """Per pose (numpy): the plane_n nearest plane points and the edge_n
+    nearest edge points of `world` in the pose's frame, with 0.005 m of
+    noise on the plane points -> [(planes [plane_n, 3], edges [edge_n, 3])]."""
+    import numpy as np
+
+    planes, edges = world
+    rng = np.random.RandomState(seed + 1)
+    out = []
+    for T in T_list:
+        T = np.asarray(T, np.float64)
+        pair = []
+        for cloud, n, noise in ((planes, plane_n, 0.005), (edges, edge_n, 0.0)):
+            idx = np.sort(np.argpartition(np.sum((cloud - T[:3, 3]) ** 2, axis=1), n)[:n])
+            local = (cloud[idx] - T[:3, 3]) @ T[:3, :3] + rng.randn(n, 3) * noise
+            pair.append(local.astype(np.float32))
+        out.append(tuple(pair))
+    return out
+
+
+def scan_times(local):
+    """Per-point times in [0, 1) from the azimuth, a spinning LiDAR's sweep
+    starting behind the sensor (numpy float32)."""
+    import numpy as np
+
+    return ((np.arctan2(local[:, 1], local[:, 0]) + np.pi) / (2 * np.pi)).astype(np.float32) % np.float32(1.0)
+
+
+def ct_scan(local, xi_motion):
+    """The points `local` (in the scan-begin pose's frame) observed while
+    the sensor moves from I to Exp(xi_motion) over the sweep: each point at
+    its azimuth time t from T(t) = interpolate_poses(I, Exp(xi), t), local'
+    = T(t)⁻¹ p. -> (raw points [N, 3], times [N]), numpy float32."""
+    import numpy as np
+    import torch
+
+    from gtsam_points_tpu_torch.factors.ct_icp import interpolate_poses
+    from gtsam_points_tpu_torch.utils import se3
+
+    times = scan_times(local)
+    T1 = se3.se3_exp(torch.from_numpy(np.asarray(xi_motion, np.float32)))
+    Ts = interpolate_poses(torch.eye(4), T1, torch.from_numpy(times)).numpy()
+    raw = np.einsum("nji,nj->ni", Ts[:, :3, :3], local - Ts[:, :3, 3])
+    return raw.astype(np.float32), times
+
+
+def loam_clouds():
+    """Phase 29's LOAM pair (numpy): the true poses of scans 0 and 1 and
+    their (planes, edges) clouds."""
+    from gtsam_points_tpu_torch.utils.synthetic import ring_trajectory
+
+    T = ring_trajectory(2, lap=100)
+    return T, scan_clouds(scan_world(), T)
+
+
+def ct_clouds():
+    """Phase 29's CT-ICP scan (numpy): the target (scan 0's planes and
+    edges, static), the raw source (the same surfaces sampled again, seen
+    while moving by Exp(CT_MOTION)) and its times."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.utils.synthetic import ring_trajectory
+
+    world, T = scan_world(), ring_trajectory(1, lap=100)
+    target = np.concatenate(scan_clouds(world, T)[0])
+    again = np.concatenate(scan_clouds(world, T, seed=SCAN_SEED + 10)[0])
+    raw, times = ct_scan(again, CT_MOTION)
+    return target, raw, times
+
+
+def ba_features(clouds, T_gt, count: int, rng, radius: float = 1.0, min_keys: int = 3, gap: float = BA_EIGEN_GAP,
+                kind: str = "plane"):
+    """demo_bundle_adjustment's features (numpy): centres drawn with `rng`
+    from keyframe 0's points in the world; each keyframe's points (under
+    T_gt) within `radius` of the centre, at most BA_MAX_POINTS a keyframe,
+    kept from keyframes with at least 10 such points and where there are
+    `min_keys`. A feature whose scatter has the eigenvalue next to the kept
+    ones within `gap` of them (lambda_1 < gap lambda_0 for a plane,
+    lambda_2 < gap lambda_1 for an edge) is skipped: there the frozen
+    eigenvectors are arbitrary. -> up to `count` {key: [n, 3] local}."""
+    import numpy as np
+
+    world = [c @ np.asarray(T[:3, :3]).T + np.asarray(T[:3, 3]) for c, T in zip(clouds, T_gt)]
+    feats = []
+    for _ in range(200):
+        c = world[0][rng.randint(len(world[0]))]
+        per_key = {}
+        for k, w in enumerate(world):
+            m = np.linalg.norm(w - c, axis=1) < radius
+            if m.sum() >= 10:
+                per_key[k] = clouds[k][m][:BA_MAX_POINTS]
+        if len(per_key) < min_keys:
+            continue
+        pts = np.concatenate([world[k][np.linalg.norm(world[k] - c, axis=1) < radius][:BA_MAX_POINTS]
+                              for k in per_key]).astype(np.float64)
+        lam = np.linalg.eigvalsh(np.cov(pts.T))
+        i = 0 if kind == "plane" else 1
+        if lam[i + 1] < gap * lam[i]:
+            continue
+        feats.append(per_key)
+        if len(feats) >= count:
+            break
+    return feats
+
+
+def ba_problem(n_keys: int = BA_KEYS, plane_n: int = SCAN_PLANE_N, edge_n: int = SCAN_EDGE_N,
+               world_n: int = SCAN_WORLD_N, per_line: int = SCAN_EDGE_PER_LINE, planes: int = BA_PLANES,
+               edges: int = BA_EDGES):
+    """Phase 30's bundle-adjustment problem (numpy): n_keys keyframes along
+    the ring, `planes` plane and `edges` edge features (RandomState(0)), the
+    poses noised by sigma = BA_SIGMA (RandomState(1), pose 0 exact).
+    -> dict(T_gt, plane_feats, edge_feats, start)."""
+    import numpy as np
+    import torch
+
+    from gtsam_points_tpu_torch.utils import se3
+    from gtsam_points_tpu_torch.utils.synthetic import ring_trajectory
+
+    T_gt = np.stack(ring_trajectory(n_keys, lap=100)).astype(np.float32)
+    clouds = scan_clouds(scan_world(world_n, per_line), T_gt, plane_n, edge_n)
+    rng = np.random.RandomState(0)
+    plane_feats = ba_features([c[0] for c in clouds], T_gt, planes, rng, kind="plane")
+    edge_feats = ba_features([c[1] for c in clouds], T_gt, edges, rng, kind="edge")
+    r = np.random.RandomState(1)
+    start = [T_gt[0]]
+    for i in range(1, n_keys):
+        xi = torch.from_numpy(r.randn(6).astype(np.float32) * BA_SIGMA)
+        start.append(T_gt[i] @ se3.se3_exp(xi).numpy())
+    return {"T_gt": T_gt, "plane_feats": plane_feats, "edge_feats": edge_feats,
+            "start": np.stack(start).astype(np.float32)}
+
+
+def ba_moments(per_key) -> dict:
+    """{key: (count, mean, covariance)} of a feature's points (numpy), the
+    LSQ factor's input."""
+    import numpy as np
+
+    out = {}
+    for k, pts in per_key.items():
+        mu = pts.mean(0)
+        d = pts - mu
+        out[k] = (len(pts), mu, d.T @ d / len(pts))
+    return out
+
+
+def _frame_to(frame, device: str):
+    """The frame's tensors (aux included) copied to `device`."""
+    def move(x):
+        return {k: v.to(device) for k, v in x.items()} if isinstance(x, dict) else x.to(device)
+
+    return frame.replace(**{f.name: move(getattr(frame, f.name)) for f in dataclasses.fields(frame)
+                            if getattr(frame, f.name) is not None})
+
+
 def _cpu_copy(frame):
     """The frame's tensors copied to the CPU."""
-    return frame.replace(**{f.name: getattr(frame, f.name).cpu() for f in dataclasses.fields(frame)
-                            if getattr(frame, f.name) is not None})
+    return _frame_to(frame, "cpu")
 
 
 def _shift_bound(torch, shift_m, shift_rad, margin=GICP_SHIFT_MARGIN, floor_m=GICP_BOUND_M,
@@ -3325,15 +3652,21 @@ def phase_frame_to_frame(torch, scene) -> dict:
 
 
 def _frame_bits_differ(torch, a, b) -> int:
-    """Values of two Frames that differ in any bit."""
+    """Values of two Frames that differ in any bit (aux included); -1 where
+    one has an attribute the other lacks."""
+    def differ(x, y) -> int:
+        x, y = x.cpu(), y.cpu()
+        return int((x.view(torch.int32) != y.view(torch.int32)).sum()) if x.is_floating_point() else int((x != y).sum())
+
     out = 0
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if (x is None) != (y is None):
+        if (x is None) != (y is None) or (isinstance(x, dict) and sorted(x) != sorted(y)):
             return -1
-        if x is not None:
-            x, y = x.cpu(), y.cpu()
-            out += int((x.view(torch.int32) != y.view(torch.int32)).sum()) if x.is_floating_point() else int((x != y).sum())
+        if isinstance(x, dict):
+            out += sum(differ(x[k], y[k]) for k in x)
+        elif x is not None:
+            out += differ(x, y)
     return out
 
 
@@ -3751,7 +4084,7 @@ def _host_median_ms(torch, fn, reps=FPFH_REPS):
     return out, statistics.median(times)
 
 
-def phase_loop_detection(torch, frames, T_true) -> None:
+def phase_loop_detection(torch, frames, T_true) -> dict:
     """Phase 25: FPFH of frames 0, GNC_NEAR_PAIR[1] and GRAPH_POSES - 1 on
     the card against the CPU port (neighbour tables equal, bin flips counted
     and each explained, unreached rows within FPFH_HIST_TOL); feature_knn's
@@ -3856,6 +4189,7 @@ def phase_loop_detection(torch, frames, T_true) -> None:
     log(f"[loop] witness: the far pair's GNC from the CPU port's features, card against the CPU port: {float(trans):.3e} m "
         f"{float(rot):.3e} rad; the card's reciprocal matches differ from the CPU port's in {moved} source points, "
         f"from the feature_knn ties (recorded)")
+    return {"card": card, "cpu": cpu, "feats": feats, "cpu_feats": cpu_feats, "far": far}
 
 
 class _LMRecorder:
@@ -4016,6 +4350,359 @@ def phase_fixed_lag(torch, frames, T_true, isam) -> dict:
     return out
 
 
+def _held_to_jax(torch, label: str, poses, jax_rows, shift, use_shift: bool = True) -> str:
+    """poses [P, 4, 4] on the card against the JAX package's (top-three-row
+    constants) within GICP_BOUND_M and _RAD, or GICP_SHIFT_MARGIN x the JAX
+    package's own order shift (m, rad) where that is larger and `use_shift`
+    holds (else the shift is printed only); raises past it. -> the line's
+    text."""
+    from gtsam_points_tpu_torch.utils import se3
+
+    rot, trans = se3.pose_error(_rows_to_poses(torch, jax_rows), poses.reshape(-1, 4, 4))
+    margin = GICP_SHIFT_MARGIN if use_shift else 0.0
+    bound_m, bound_rad = max(GICP_BOUND_M, margin * shift[0]), max(GICP_BOUND_RAD, margin * shift[1])
+    text = (f"against the JAX package's {float(trans.max()):.3e} m {float(rot.max()):.3e} rad (bounds {bound_m:.3e} m "
+            f"{bound_rad:.3e} rad; JAX's order shift {shift[0]:.3e} m {shift[1]:.3e} rad"
+            f"{'' if use_shift else ', printed only: the same point order'})")
+    if not (float(trans.max()) <= bound_m and float(rot.max()) <= bound_rad):
+        raise AssertionError(f"{label}: {text}")
+    return text
+
+
+def _refine_on_card(torch, target, source, T0):
+    """demo_global_registration's refine on the card: the source moved by
+    the coarse pose T0, a unary GICP factor, REFINE_ITERATIONS LM
+    iterations from I. -> (T_fine, the LM's result, the factor, ms)."""
+    from gtsam_points_tpu_torch.factors import make_gicp_factor
+    from gtsam_points_tpu_torch.optim import FactorGraph, LMParams, optimize_lm
+    from gtsam_points_tpu_torch.types.frame import transform_frame
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factor = make_gicp_factor(-1, 0, target, transform_frame(T0, source), max_corr_dist=REFINE_MAX_CORR)
+    graph = FactorGraph(num_poses=1).add(factor)
+    res = optimize_lm(graph, torch.eye(4, device="cuda")[None], LMParams(max_iterations=REFINE_ITERATIONS))
+    T_fine = res.poses[0] @ T0
+    torch.cuda.synchronize()
+    return T_fine, res, factor, (time.perf_counter() - t0) * 1e3
+
+
+def phase_global_registration(torch, loop: dict, T_true) -> dict:
+    """Phase 28: demo_global_registration on phase 25's frames and FPFH, the
+    near pair GNC_NEAR_PAIR and the far pair (0, GRAPH_POSES - 1):
+    estimate_pose_ransac (RANSAC_ITERATIONS hypotheses) on the card's
+    features, the main path, timed (median of FPFH_REPS calls, host clock)
+    with its synchronizing calls counted; then on the CPU port's features
+    and the same generator draws, card against the CPU port, the pose within
+    RANSAC_TOL_M and _RAD or, where another hypothesis won, an equal score
+    (a tie); then the GICP refine from the coarse pose the JAX package's
+    refine started from (the CPU port's RANSAC pose, RANSAC_*_START, and
+    the JAX GNC pose), on K3 with its plain version barred, its launches
+    equal to the LM iterations, held to the JAX package's refined pose by
+    `_held_to_jax`; the demo's chain, the refine from the card's own RANSAC
+    pose, held to the refine from RANSAC_START within GICP_BOUND_M and _RAD;
+    K3 held to its plain version on each refine's final payload
+    (`hold_k3`); voxelmap_overlap and overlap_auto of each refined
+    pair, card against the CPU port, equal. -> K3's launches and the times."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.ops.voxelmap import build_voxelmap, voxelmap_overlap
+    from gtsam_points_tpu_torch.registration import (
+        RANSACParams,
+        estimate_pose_ransac,
+        estimate_pose_ransac_from_draws,
+        ransac_draws,
+    )
+    from gtsam_points_tpu_torch.types.frame_funcs import overlap_auto
+    from gtsam_points_tpu_torch.utils import se3
+
+    card, cpu, feats, cpu_feats = loop["card"], loop["cpu"], loop["feats"], loop["cpu_feats"]
+    params = RANSACParams(max_iterations=RANSAC_ITERATIONS)
+    out = {"launches": 0, "ransac_ms": {}, "refine_ms": {}, "syncs": {}}
+    for name, pair in (("near", GNC_NEAR_PAIR), ("far", loop["far"])):
+        a, b = pair
+        truth = torch.from_numpy((np.linalg.inv(T_true[a]) @ T_true[b]).astype(np.float32)).cuda()
+
+        def ransac():
+            return estimate_pose_ransac(card[a], card[b], feats[a], feats[b], params, device="cuda")
+
+        res, syncs = _syncs(torch, ransac)
+        again, ms = _host_median_ms(torch, ransac)
+        same = _bits_differ(torch, (again.T_target_source,), (res.T_target_source,)) == 0
+        rot_t, trans_t = se3.pose_error(truth, res.T_target_source)
+        jax_rot, jax_trans = se3.pose_error(_rows_to_poses(torch, [RANSAC_JAX[name]["pose"]])[0], res.T_target_source)
+        out["ransac_ms"][name], out["syncs"][name] = ms, syncs
+        log(f"[global] RANSAC {name} pair, frame {a} <- frame {b}, {RANSAC_ITERATIONS} hypotheses on the card's "
+            f"FPFH: against the truth {float(trans_t):.6f} m {float(rot_t):.6f} rad, inlier rate "
+            f"{float(res.inlier_rate):.6f}; median ms {ms:.3f} over {FPFH_REPS} calls (host clock, synchronized), "
+            f"repeats equal bit for bit {same}; synchronizing calls in one call {syncs}; the JAX package's pose from "
+            f"its own threefry draws (recorded, not held: torch cannot make those draws) lies {float(jax_trans):.3e} m "
+            f"{float(jax_rot):.3e} rad from it, inlier rate {RANSAC_JAX[name]['inlier']:.6f}")
+        if not same or not bool(torch.all(torch.isfinite(res.T_target_source))):
+            raise AssertionError(f"global registration: the {name} RANSAC on the card is not repeatable or not finite")
+
+        # the same draws and the CPU port's features: card against the CPU port
+        cand, score_idx = ransac_draws(params, card[b].capacity)
+        ref = estimate_pose_ransac_from_draws(cpu[a], cpu[b], cpu_feats[a], cpu_feats[b], params, cand, score_idx)
+        got = estimate_pose_ransac_from_draws(card[a], card[b], cpu_feats[a].cuda(), cpu_feats[b].cuda(), params,
+                                              cand.cuda(), score_idx.cuda())
+        rot, trans = se3.pose_error(ref.T_target_source, got.T_target_source.cpu())
+        close = float(trans) <= RANSAC_TOL_M and float(rot) <= RANSAC_TOL_RAD
+        tie = float(got.inlier_rate) == float(ref.inlier_rate)
+        start_rot, start_trans = se3.pose_error(_rows_to_poses(torch, [RANSAC_START[name]])[0].cpu(),
+                                                ref.T_target_source)
+        log(f"[global] RANSAC {name} pair on the CPU port's features and the same draws, card against the CPU port: "
+            f"{float(trans):.3e} m {float(rot):.3e} rad (bounds {RANSAC_TOL_M} m {RANSAC_TOL_RAD} rad), inlier rates "
+            f"{float(got.inlier_rate):.6f} and {float(ref.inlier_rate):.6f}"
+            + ("" if close else " (another hypothesis won: the scores must tie)")
+            + f"; the CPU port's pose here lies {float(start_trans):.3e} m {float(start_rot):.3e} rad from the refine's "
+            f"start RANSAC_START (the CPU port's pose on its own frames)")
+        if not (close or tie):
+            raise AssertionError(f"global registration: the {name} RANSAC on the card differs from the CPU port's")
+
+        # the refines, each from the coarse pose the JAX package's refine started from
+        target_map, target_map_cpu = build_voxelmap(card[a], 1.0), build_voxelmap(cpu[a], 1.0)
+        source_map, source_map_cpu = build_voxelmap(card[b], 1.0), build_voxelmap(cpu[b], 1.0)
+        fine = {}
+        for start, rows in (("ransac", RANSAC_START[name]), ("gnc", GNC_NEAR_JAX_POSE if name == "near"
+                                                                  else GNC_JAX_POSE), ("card", None)):
+            # "card": the demo's chain, the refine from the card's own RANSAC pose, held to the refine from
+            # RANSAC_START within GICP_BOUND_M and _RAD
+            T0 = res.T_target_source if rows is None else _rows_to_poses(torch, [rows])[0]
+            _zero_counts(FL)
+            with mock.patch.object(FL, "linearize_fused_plain", side_effect=AssertionError("K3's plain version ran")):
+                T_fine, lm, factor, ms = _refine_on_card(torch, card[a], card[b], T0)
+            iters, launches = int(lm.status.num_iterations), FL.launches
+            out["launches"] += launches
+            fine[start], out["refine_ms"][f"{name}_{start}"] = T_fine, ms
+            rot_t, trans_t = se3.pose_error(truth, T_fine)
+            if rows is None:
+                rot, trans = se3.pose_error(fine["ransac"], T_fine)
+                held = (f"against the refine from RANSAC_START {float(trans):.3e} m {float(rot):.3e} rad (bounds "
+                        f"{GICP_BOUND_M} m {GICP_BOUND_RAD} rad)")
+                if float(trans) > GICP_BOUND_M or float(rot) > GICP_BOUND_RAD:
+                    raise AssertionError(f"global registration: the {name} refine from the card's RANSAC pose: {held}")
+            else:
+                held = _held_to_jax(torch, f"global registration: the {name} refine from {start}", T_fine,
+                                    [REFINE_JAX[name][start]], REFINE_ORDER_SHIFT[name][start])
+            log(f"[global] GICP refine of the {name} pair from the {start} pose: {iters} LM iterations, K3 launches "
+                f"{launches} (must equal them), K3's plain version not called, ms {ms:.3f} (host clock, "
+                f"synchronized); against the truth {float(trans_t):.6f} m {float(rot_t):.6f} rad; {held}")
+            if launches != iters or iters == 0:
+                raise AssertionError(f"global registration: K3 launched {launches} times in {iters} LM iterations")
+            hold_k3(torch, "global", f"the {name} refine from {start} at its final pose",
+                    factor.k3_inputs(lm.poses, factor.correspondences(lm.poses)))
+            # the refined pair's overlap, card against the CPU port
+            ov = (float(voxelmap_overlap(target_map, card[b], T_fine)),
+                  float(voxelmap_overlap(target_map_cpu, cpu[b], T_fine.cpu())))
+            eye = torch.eye(4, device="cuda")
+            auto = (float(overlap_auto([target_map, source_map], card[b], [T_fine, eye])),
+                    float(overlap_auto([target_map_cpu, source_map_cpu], cpu[b], [T_fine.cpu(), eye.cpu()])))
+            log(f"[global] overlap of the {name} pair at the refined {start} pose: voxelmap_overlap card {ov[0]:.6f} "
+                f"CPU port {ov[1]:.6f}; overlap_auto (target's map at the pose, source's at the identity) card "
+                f"{auto[0]:.6f} CPU port {auto[1]:.6f} (each pair must be equal)")
+            if ov[0] != ov[1] or auto[0] != auto[1]:
+                raise AssertionError("global registration: an overlap on the card differs from the CPU port's")
+    return out
+
+
+def phase_scan_factors(torch) -> dict:
+    """Phase 29: LOAM and CT-ICP on the scan scene (scan_world). LOAM: scans
+    0 and 1 (loam_clouds) through make_loam_factor with and without
+    scan-line validation, a prior, LOAM_ITERATIONS LM iterations from the
+    identity; CT-ICP: ct_clouds' target and motion-distorted source with
+    kNN features, make_ct_icp_factor in CT_MODES, a prior, CT_ITERATIONS LM
+    iterations from the identity, then deskew, with the RMSE of the source
+    against the target before and after (brute_force_knn). Every pose held
+    to the JAX package's by `_held_to_jax` (LOAM's to the floor alone), and
+    the gap between the validated and plain LOAM poses to the JAX package's
+    gap; ms a registration (host clock, synchronized). -> the times."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.factors import PriorFactor, deskew, make_ct_icp_factor, make_loam_factor
+    from gtsam_points_tpu_torch.ops.features import estimate_normals_covs
+    from gtsam_points_tpu_torch.ops.hash_grid import brute_force_knn
+    from gtsam_points_tpu_torch.optim import FactorGraph, LMParams, optimize_lm
+    from gtsam_points_tpu_torch.types.frame import make_frame
+    from gtsam_points_tpu_torch.utils import se3
+
+    t0 = time.perf_counter()
+    T, clouds = loam_clouds()
+    target, raw, times = ct_clouds()
+    log(f"[scan] the scan scene: {len(clouds[0][0])} plane and {len(clouds[0][1])} edge points a scan, made in "
+        f"{time.perf_counter() - t0:.3f} s (numpy, host)")
+    eye = torch.eye(4, device="cuda")
+
+    def run(factor, weight: float, iterations: int):
+        graph = FactorGraph(num_poses=2)
+        graph.add(PriorFactor(prior=eye, weights=torch.full((6,), weight, device="cuda"), key=0))
+        graph.add(factor)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = optimize_lm(graph, torch.stack([eye, eye]), LMParams(max_iterations=iterations))
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    out, loam = {}, {}
+    frames = [[make_frame(c, device="cuda") for c in pair] for pair in clouds]
+    truth = torch.from_numpy((np.linalg.inv(T[0]) @ T[1]).astype(np.float32)).cuda()
+    for validate in (False, True):
+        key = "loam_validated" if validate else "loam_plain"
+        (tp, te), (sp, se) = frames
+        factor = make_loam_factor(0, 1, te, tp, se, sp, max_corr_dist=LOAM_MAX_CORR, grid_leaf=LOAM_GRID_LEAF,
+                                  enable_correspondence_validation=validate)
+        res, ms = run(factor, LOAM_PRIOR_WEIGHT, LOAM_ITERATIONS)
+        out[key], loam[key] = ms, res.poses[1]
+        rot_t, trans_t = se3.pose_error(truth, res.poses[1])
+        held = _held_to_jax(torch, f"scan factors: {key}", res.poses[1], [SCAN_JAX_POSES[key]], SCAN_ORDER_SHIFT[key],
+                            use_shift=False)
+        log(f"[scan] LOAM pair, validation {validate}: {int(res.status.num_iterations)} LM iterations, ms {ms:.3f}; "
+            f"against the truth {float(trans_t):.6f} m {float(rot_t):.6f} rad; {held}")
+    jax_loam = _rows_to_poses(torch, [SCAN_JAX_POSES["loam_plain"], SCAN_JAX_POSES["loam_validated"]])
+    gap_rot, gap_m = (float(x) for x in se3.pose_error(loam["loam_plain"], loam["loam_validated"]))
+    jax_rot, jax_m = (float(x) for x in se3.pose_error(jax_loam[0], jax_loam[1]))
+    log(f"[scan] LOAM, validated against plain pose: card {gap_m:.6e} m {gap_rot:.6e} rad, the JAX package's "
+        f"{jax_m:.6e} m {jax_rot:.6e} rad (must agree within {GICP_BOUND_M} m {GICP_BOUND_RAD} rad)")
+    if abs(gap_m - jax_m) > GICP_BOUND_M or abs(gap_rot - jax_rot) > GICP_BOUND_RAD:
+        raise AssertionError("scan factors: scan-line validation moves the card's LOAM pose unlike the JAX package's")
+
+    def rmse(points, mask, tgt) -> float:
+        _, sq, valid = brute_force_knn(tgt.points, tgt.mask, points, mask, k=1)
+        ok = valid[:, 0] & mask
+        return float(torch.sqrt(torch.sum(torch.where(ok, sq[:, 0], 0.0)) / torch.clamp(ok.sum(), min=1)))
+
+    prep = lambda f: estimate_normals_covs(f, k=CT_FEATURE_K, grid_leaf=CT_FEATURE_LEAF)  # noqa: E731
+    tgt = prep(make_frame(target, device="cuda"))
+    src = prep(make_frame(raw, times=times, device="cuda"))
+    motion = se3.se3_exp(torch.tensor(CT_MOTION, device="cuda"))
+    for mode in CT_MODES:
+        key = f"ct_{mode}"
+        factor = make_ct_icp_factor(0, 1, tgt, src, gicp=mode == "gicp", point_to_plane=mode == "plane",
+                                    max_corr_dist=CT_MAX_CORR, grid_leaf=CT_GRID_LEAF)
+        res, ms = run(factor, CT_PRIOR_WEIGHT, CT_ITERATIONS)
+        out[key] = ms
+        held = _held_to_jax(torch, f"scan factors: {key}", res.poses, SCAN_JAX_POSES[key], SCAN_ORDER_SHIFT[key])
+        desk = deskew(res.poses[0], res.poses[1], factor.source)
+        rot_m, trans_m = se3.pose_error(motion, se3.se3_inverse(res.poses[0]) @ res.poses[1])
+        log(f"[scan] CT-ICP {mode}: {int(res.status.num_iterations)} LM iterations, ms {ms:.3f}; the sweep's motion "
+            f"against the truth {float(trans_m):.6f} m {float(rot_m):.6f} rad; deskew RMSE against the target before "
+            f"{rmse(src.points, src.mask, tgt):.6f} m after {rmse(desk.points, desk.mask, tgt):.6f} m; {held}")
+    return out
+
+
+def phase_bundle_adjustment(torch) -> dict:
+    """Phase 30: demo_bundle_adjustment on the scan scene (ba_problem:
+    BA_KEYS keyframes, BA_PLANES plane and BA_EDGES edge features), priors
+    of 1e6 on key 0 and 1e2 on key 1, BA_ITERATIONS LM iterations from the
+    noised poses, in EVM mode (make_evm_factor, plane and edge) and LSQ mode
+    (make_lsq_ba_factor, planes); the poses held to the JAX package's by
+    `_held_to_jax`; the demo's report (the largest rotation and translation
+    error of each pose relative to pose 0 against the truth), ms a run."""
+    from gtsam_points_tpu_torch.factors import PriorFactor, make_evm_factor, make_lsq_ba_factor
+    from gtsam_points_tpu_torch.optim import FactorGraph, LMParams, optimize_lm
+    from gtsam_points_tpu_torch.utils import se3
+
+    t0 = time.perf_counter()
+    problem = ba_problem()
+    log(f"[ba] {BA_KEYS} keyframes, {len(problem['plane_feats'])} plane and {len(problem['edge_feats'])} edge features, "
+        f"made in {time.perf_counter() - t0:.3f} s (numpy, host)")
+    T_gt = torch.from_numpy(problem["T_gt"]).cuda()
+    out = {}
+    for mode in ("evm", "lsq"):
+        graph = FactorGraph(num_poses=BA_KEYS)
+        graph.add(PriorFactor(prior=T_gt[0], weights=torch.full((6,), 1e6, device="cuda"), key=0))
+        graph.add(PriorFactor(prior=T_gt[1], weights=torch.full((6,), 1e2, device="cuda"), key=1))
+        if mode == "evm":
+            for kind in ("plane", "edge"):
+                for f in problem[f"{kind}_feats"]:
+                    graph.add(make_evm_factor(kind, f, device="cuda"))
+        else:
+            for f in problem["plane_feats"]:
+                graph.add(make_lsq_ba_factor(ba_moments(f), device="cuda"))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = optimize_lm(graph, torch.from_numpy(problem["start"]).cuda(), LMParams(max_iterations=BA_ITERATIONS))
+        torch.cuda.synchronize()
+        out[mode] = ms = (time.perf_counter() - t) * 1e3
+        held = _held_to_jax(torch, f"bundle adjustment: {mode}", res.poses, BA_JAX_POSES[mode], BA_ORDER_SHIFT[mode])
+        rel_est = se3.se3_inverse(res.poses[0])[None] @ res.poses
+        rel_gt = se3.se3_inverse(T_gt[0])[None] @ T_gt
+        rot, trans = se3.pose_error(rel_gt, rel_est)
+        log(f"[ba] {mode.upper()}: {len(graph)} factors, {int(res.status.num_iterations)} LM iterations, ms {ms:.3f}; "
+            f"max rot err {float(rot.max()):.4f} rad, max trans err {float(trans.max()):.4f} m (the demo's report); "
+            f"{held}")
+    return out
+
+
+def phase_data_model(torch, main_map) -> None:
+    """Phase 31: the data model on the card against the CPU port, bit for
+    bit: merge_frames (with aux, pad to a capacity), pad_frame (pad and
+    truncate), sort_by_voxel_key and sample on phase 4's scans with times
+    and aux attributes; insert_frame_fast of phase 4's last scan (at its
+    odometry pose) into phase 4's final map, every field and the miss
+    fraction; a save_voxelmap / load_voxelmap round trip of that map through
+    build/ (the file removed after)."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, insert_frame_fast, load_voxelmap, save_voxelmap
+    from gtsam_points_tpu_torch.types.frame import make_frame, merge_frames, pad_frame, transform_frame
+    from gtsam_points_tpu_torch.types.frame_funcs import sample, sort_by_voxel_key
+
+    vmap, last, pose = main_map
+    rng = np.random.RandomState(31)
+    pts = [last.points[: 20000 - 1000 * i].cpu().numpy() for i in range(3)]
+    attrs = [dict(times=rng.rand(len(p)).astype(np.float32), aux={"ring": rng.randint(0, 64, len(p)).astype(np.float32),
+                                                                  "w": rng.rand(len(p), 2)}) for p in pts]
+    card = [make_frame(p, device="cuda", **a) for p, a in zip(pts, attrs)]
+    cpu = [make_frame(p, device="cpu", **a) for p, a in zip(pts, attrs)]
+    idx = rng.permutation(len(pts[0]))[:9000]
+    checks = {
+        "merge_frames": (merge_frames(card, capacity=60000), merge_frames(cpu, capacity=60000)),
+        "pad_frame (pad)": (pad_frame(card[0], 24576), pad_frame(cpu[0], 24576)),
+        "pad_frame (truncate)": (pad_frame(card[1], 12000), pad_frame(cpu[1], 12000)),
+        "sort_by_voxel_key (leaf 1.0)": (sort_by_voxel_key(card[0], 1.0), sort_by_voxel_key(cpu[0], 1.0)),
+        "sort_by_voxel_key (leaf 4.0)": (sort_by_voxel_key(card[2], 4.0), sort_by_voxel_key(cpu[2], 4.0)),
+        "sample": (sample(card[0], torch.from_numpy(idx).cuda()), sample(cpu[0], torch.from_numpy(idx))),
+    }
+    texts = []
+    for name, (c, h) in checks.items():
+        differ = _frame_bits_differ(torch, c, h)
+        texts.append(f"{name} {differ}")
+        if differ:
+            raise AssertionError(f"data model: {name} on the card differs from the CPU port's in {differ} values")
+    log("[data] card against the CPU port, values differing in any bit (-1: an attribute missing): "
+        + ", ".join(texts))
+
+    moved = transform_frame(pose, last)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, miss = insert_frame_fast(vmap, moved)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu_map = GaussianVoxelMap(*(x.cpu() for x in vmap))
+    ref, ref_miss = insert_frame_fast(cpu_map, _cpu_copy(moved))
+    differ = {k: _bits_differ(torch, (getattr(new, k).cpu(),), (getattr(ref, k),)) for k in vmap._fields}
+    log(f"[data] insert_frame_fast of phase 4's last scan into its {vmap.capacity}-voxel map: miss fraction card "
+        f"{float(miss):.6f} CPU port {float(ref_miss):.6f}; fields differing in any bit {differ}; ms {ms:.3f} "
+        f"(host clock, synchronized, first call)")
+    if any(differ.values()) or float(miss) != float(ref_miss):
+        raise AssertionError("data model: insert_frame_fast on the card differs from the CPU port's")
+
+    path = os.path.join(ROOT, "build", "phase31_map.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        save_voxelmap(path, new)
+        loaded = load_voxelmap(path, device="cuda")
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    differ = {k: _bits_differ(torch, (getattr(loaded, k),), (getattr(new, k),)) for k in new._fields}
+    log(f"[data] save_voxelmap / load_voxelmap round trip on the card: fields differing in any bit {differ}")
+    if any(differ.values()):
+        raise AssertionError("data model: the voxel map changed through save_voxelmap / load_voxelmap")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -4084,11 +4771,17 @@ def main() -> int:
     phase_pose_graph(torch)
     T_graph = scene["T_true"][:GRAPH_POSES]
     t_back = time.perf_counter()
-    phase_loop_detection(torch, graph_frames, T_graph)
+    loop = phase_loop_detection(torch, graph_frames, T_graph)
     stream = (graph_frames[:ISAM2_POSES], T_graph[:ISAM2_POSES])
     isam2 = phase_isam2(torch, *stream)
     fixed_lag = phase_fixed_lag(torch, *stream, isam2["isam"])
     log(f"[back-end] phases 25-27: {time.perf_counter() - t_back:.1f} s")
+    t_slice = time.perf_counter()
+    global_reg = phase_global_registration(torch, loop, T_graph)
+    phase_scan_factors(torch)
+    phase_bundle_adjustment(torch)
+    phase_data_model(torch, k3.pop("map"))
+    log(f"[slice 13] phases 28-31: {time.perf_counter() - t_slice:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -4099,7 +4792,8 @@ def main() -> int:
         "launches": k3["launches"],
         "launches_by_path": {"odometry": k3["launches"], "gicp_pair": pairs["gicp"], "icp_pair": pairs["icp"],
                              "icp_plane_pair": pairs["icp_plane"], "frame_to_frame": frame_to_frame["launches"],
-                             **graph, "isam2": isam2["launches"], "fixed_lag": fixed_lag["launches"]},
+                             **graph, "isam2": isam2["launches"], "fixed_lag": fixed_lag["launches"],
+                             "global_refine": global_reg["launches"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],

@@ -18,4 +18,7 @@ _torch.set_float32_matmul_precision("highest")
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from gtsam_points_tpu_torch.types.frame import Frame, make_frame, merge_frames, transform_frame  # noqa: E402
+from gtsam_points_tpu_torch.utils import se3  # noqa: E402
+
 __version__ = "0.1.0"

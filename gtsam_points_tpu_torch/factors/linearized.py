@@ -39,8 +39,7 @@ def linearize_residuals(residual_fn: Callable, T_target: torch.Tensor, T_source:
     zero = torch.zeros((12,), dtype=torch.float32, device=T_source.device)
 
     def at(xi):
-        # both tangents go through se3_exp as one [2, 6] batch: forward-mode
-        # AD of a 0-d tensor times a python float gives a float64 tangent
+        # both tangents go through se3_exp as one [2, 6] batch, one call
         exps = se3.se3_exp(xi.reshape(2, 6))
         return residual_fn(T_target @ exps[0], T_source @ exps[1])[0]
 

@@ -5,7 +5,7 @@ Port of gtsam_points_tpu/factors/misc_factors.py: `Pose3CalibFactor`,
 `multi_linearize` protocol: each defines `_residual(T [..., K, 4, 4]) ->
 [..., D]` over its `pose_keys`, and the (6K)x(6K) system comes from
 forward-mode AD at zero tangent under the right retraction. The tangents go
-through `se3_exp` as a batch of one (PriorFactor's reason). `error` takes
+through `se3_exp` as a batch of one, as PriorFactor's. `error` takes
 poses [..., P, 4, 4] and returns [...], so the LM scores its candidates in
 one call.
 """

@@ -8,9 +8,8 @@ Port of gtsam_points_tpu/factors/pose_factors.py:
 
 W is diagonal [6] in (omega, v) order. Jacobians come from forward-mode AD
 at zero tangent under the right retraction, the tangents pushed through
-`se3_exp` as a batch: forward-mode AD of a 0-d tensor times a python float
-gives a float64 tangent in PyTorch. `error` takes poses [..., P, 4, 4] and
-returns [...], so the LM scores its candidates in one call.
+`se3_exp` with a leading batch axis, the layout `error` takes: poses
+[..., P, 4, 4] -> [...], so the LM scores its candidates in one call.
 """
 
 from __future__ import annotations
@@ -47,8 +46,7 @@ class PriorFactor:
         T = poses[self.key]
         r0 = self._residual(T)
         zero = torch.zeros((6,), dtype=torch.float32, device=T.device)
-        # a batch of one: forward-mode AD of a 0-d tensor times a python
-        # float gives a float64 tangent in PyTorch
+        # a batch of one, the layout `error` takes
         J = torch.func.jacfwd(lambda xi: self._residual(T @ se3.se3_exp(xi[None]))[0])(zero)
         H = J.T @ (J * self.weights[:, None])
         b = -(J.T @ (self.weights * r0))

@@ -7,9 +7,10 @@ take the numpy arrays of a JAX `GaussianVoxelMap` (its seven fields), of a
 `Frame` (with its normals and covariances), of a `SourceClusters` (its four
 fields), of a `HashGrid` (its nine arrays and its coarse level), of a
 `PoseGraphEdges`, of a `VGICPFactorBatch` (its stacked maps and frames and
-its keys) and of a `MarginalPriorFactor`, and build the port's state from
-them bit for bit, so both packages can start from the same map, search the
-same grid or optimize the same graph. `isam2_to_numpy` snapshots either
+its keys), of a `MarginalPriorFactor` and of the bundle-adjustment factors
+(an EVM factor's points and keys, an LSQ factor's moments), and build the
+port's state from them bit for bit, so both packages can start from the
+same map, search the same grid or optimize the same graph. `isam2_to_numpy` snapshots either
 package's `ISAM2Ext` so tests can hold the two against each other.
 """
 
@@ -21,23 +22,15 @@ import numpy as np
 import torch
 
 from gtsam_points_tpu_torch._device import DeviceLike, resolve_device
+from gtsam_points_tpu_torch.factors.balm import EdgeEVMFactor, LsqBAFactor, PlaneEVMFactor
 from gtsam_points_tpu_torch.factors.batch import VGICPFactorBatch
 from gtsam_points_tpu_torch.ops.hash_grid import HashGrid
-from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap
+from gtsam_points_tpu_torch.ops.voxelmap import FIELD_DTYPES, GaussianVoxelMap
 from gtsam_points_tpu_torch.optim.incremental import MarginalPriorFactor
 from gtsam_points_tpu_torch.optim.sparse import PoseGraphEdges
 from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
 
-_VMAP_DTYPES = {
-    "leaf": np.float32,
-    "keys": np.int32,
-    "moments": np.float32,
-    "last_seen": np.int32,
-    "epoch": np.int32,
-    "num_voxels": np.int32,
-    "table": np.float32,
-}
 _FRAME_FIELDS = ("points", "mask", "normals", "covs", "intensities", "times")
 _GRID_DTYPES = {
     "leaf": np.float32,
@@ -63,6 +56,8 @@ _POSE_GRAPH_DTYPES = {
 }
 _MARGINAL_FIELDS = ("lin_poses", "sqrt_info_t", "delta_star")
 _CLUSTER_DTYPES = {"pts_p": np.float32, "covs6": np.float32, "weight": np.float32, "mask": bool}
+_EVM_DTYPES = {"points": np.float32, "point_keys": np.int64, "mask": bool}
+_LSQ_DTYPES = {"counts": np.float32, "means": np.float32, "covs": np.float32}
 
 
 def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
@@ -78,23 +73,36 @@ def _numpy(x) -> np.ndarray:
 def voxelmap_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = None) -> GaussianVoxelMap:
     """`arrays`: leaf, keys, moments, last_seen, epoch, num_voxels, table."""
     dev = resolve_device(device)
-    return GaussianVoxelMap(**{k: _tensor(arrays[k], dt, dev) for k, dt in _VMAP_DTYPES.items()})
+    return GaussianVoxelMap(**{k: _tensor(arrays[k], dt, dev) for k, dt in FIELD_DTYPES.items()})
 
 
 def frame_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = None) -> Frame:
-    """`arrays`: points and mask, and any of normals, covs, intensities, times."""
+    """`arrays`: points and mask, and any of normals, covs, intensities,
+    times, and aux (a mapping of name -> array)."""
     dev = resolve_device(device)
     fields = {}
     for k in _FRAME_FIELDS:
         a = arrays.get(k)
         if a is not None:
             fields[k] = _tensor(a, bool if k == "mask" else np.float32, dev)
+    aux = arrays.get("aux")
+    if aux is not None:
+        fields["aux"] = {k: _tensor(v, np.float32, dev) for k, v in aux.items()}
     return Frame(**fields)
 
 
+def frame_to_numpy(frame) -> dict:
+    """The frame's arrays (those present) as numpy, `aux` as a dict. Takes
+    the port's `Frame` or the JAX one."""
+    out = {k: _numpy(getattr(frame, k)) for k in _FRAME_FIELDS if getattr(frame, k) is not None}
+    if frame.aux is not None:
+        out["aux"] = {k: _numpy(v) for k, v in frame.aux.items()}
+    return out
+
+
 def voxelmap_to_numpy(vmap: GaussianVoxelMap) -> dict:
-    """The map's fields as numpy arrays (for comparison with the JAX map)."""
-    return {k: getattr(vmap, k).cpu().numpy() for k in _VMAP_DTYPES}
+    """The map's fields as numpy arrays. Takes the port's map or the JAX one."""
+    return {k: _numpy(getattr(vmap, k)) for k in FIELD_DTYPES}
 
 
 def clusters_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = None) -> SourceClusters:
@@ -183,3 +191,32 @@ def isam2_to_numpy(isam) -> dict:
         "num_compiles": int(isam.num_compiles),
         "marginal_priors": [marginal_prior_to_numpy(f) for f in isam.factors if type(f).__name__ == "MarginalPriorFactor"],
     }
+
+
+def evm_factor_from_numpy(arrays: Mapping, device: DeviceLike = None):
+    """`arrays`: points [N, 3], point_keys [N], mask [N], pose_keys and
+    num_eigvecs (a JAX `PlaneEVMFactor`'s or `EdgeEVMFactor`'s fields) -> the
+    port's factor of the same kind (num_eigvecs 1: plane, 2: edge)."""
+    dev = resolve_device(device)
+    cls = PlaneEVMFactor if int(arrays["num_eigvecs"]) == 1 else EdgeEVMFactor
+    return cls(**{k: _tensor(arrays[k], dt, dev) for k, dt in _EVM_DTYPES.items()},
+               pose_keys=tuple(int(k) for k in arrays["pose_keys"]))
+
+
+def evm_factor_to_numpy(f) -> dict:
+    """An EVM factor's fields as numpy arrays (either package's)."""
+    return {**{k: _numpy(getattr(f, k)) for k in _EVM_DTYPES}, "pose_keys": tuple(int(k) for k in f.pose_keys),
+            "num_eigvecs": int(f.num_eigvecs)}
+
+
+def lsq_ba_factor_from_numpy(arrays: Mapping, device: DeviceLike = None) -> LsqBAFactor:
+    """`arrays`: counts [K], means [K, 3], covs [K, 3, 3] and pose_keys (a
+    JAX `LsqBAFactor`'s fields)."""
+    dev = resolve_device(device)
+    return LsqBAFactor(**{k: _tensor(arrays[k], dt, dev) for k, dt in _LSQ_DTYPES.items()},
+                       pose_keys=tuple(int(k) for k in arrays["pose_keys"]))
+
+
+def lsq_ba_factor_to_numpy(f) -> dict:
+    """An LSQ factor's moments as numpy arrays (either package's)."""
+    return {**{k: _numpy(getattr(f, k)) for k in _LSQ_DTYPES}, "pose_keys": tuple(int(k) for k in f.pose_keys)}

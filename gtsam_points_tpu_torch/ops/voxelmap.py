@@ -23,12 +23,14 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from gtsam_points_tpu_torch._device import DeviceLike, resolve_device
+from gtsam_points_tpu_torch._device import DeviceLike, check_on, resolve_device
 from gtsam_points_tpu_torch.ops import voxel_keys as vk
 from gtsam_points_tpu_torch.ops.hash_index import hash_key
 from gtsam_points_tpu_torch.types.frame import Frame
+from gtsam_points_tpu_torch.utils import se3
 
 _MOM_LANES = 16
 _REC_LANES = 16
@@ -198,6 +200,15 @@ def scatter_sum(rows: torch.Tensor, slot: torch.Tensor, size: int) -> torch.Tens
     order = torch.argsort(slot, stable=True)
     flat = rows.reshape(rows.shape[0], -1)[order]
     return _run_sum(flat, slot[order], size).reshape((size,) + rows.shape[1:])
+
+
+def _accumulate(base: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """base [S, L] with rows [M, L] added at slot [M] (slot S and past
+    dropped), each slot summed from its base value through its rows in their
+    input order: the order of the reference's scatter-add, on every device."""
+    size = base.shape[0]
+    own = torch.arange(size, dtype=slot.dtype, device=slot.device)
+    return scatter_sum(torch.cat([base, rows]), torch.cat([own, slot]), size)
 
 
 def build_probe_table(keys: torch.Tensor, moments: torch.Tensor) -> torch.Tensor:
@@ -474,3 +485,84 @@ def insert_rows_incremental(
         table=table,
     )
     return out, overflow
+
+
+def insert_frame_fast(vmap: GaussianVoxelMap, frame: Frame):
+    """Steady-state insertion: the frame's points added to the voxels that
+    already exist (one probe, no sort of the map's keys, no rebuild of the
+    probe table); points in unmapped voxels are dropped and counted.
+    -> (new map, miss fraction). A caller runs the structural `insert_frame`
+    when the miss fraction is large. The moment rows and the probe records'
+    moment lanes are summed in the reference's order (`_accumulate`), so a
+    card insert equals a CPU insert bit for bit."""
+    check_on(vmap.keys.device, frame.points)
+    cap = vmap.capacity
+    keys = vk.point_keys(frame.points, frame.mask, vmap.leaf)
+    row, found, _, tslot = table_probe(vmap.table, keys)
+    hit = found & frame.mask
+    w = hit.to(torch.float32)
+    rows = point_moments(frame.points, frame.covs, w, frame.intensities)
+    moments = _accumulate(vmap.moments, rows, torch.where(hit, row.to(_I64), cap))
+
+    # the same moment deltas into the records' moment lanes (2..12); the key
+    # and row lanes are not touched
+    n_slots = vmap.table.shape[0] * _BUCKET_SLOTS
+    flat = vmap.table.reshape(n_slots, _REC_LANES)
+    lanes = _accumulate(flat[:, 2:13], rows[:, :11], torch.where(hit, tslot, n_slots))
+    table = torch.cat([flat[:, :2], lanes, flat[:, 13:]], dim=1).reshape(vmap.table.shape)
+
+    epoch = vmap.epoch + 1
+    seen = torch.cat([vmap.last_seen, vmap.last_seen.new_zeros((1,))])
+    seen.scatter_reduce_(0, torch.where(hit, row.to(_I64), cap), epoch.expand(hit.shape[0]).to(torch.int32), "amax",
+                         include_self=True)
+    n_valid = torch.clamp(frame.num_valid().to(torch.float32), min=1.0)
+    miss_fraction = 1.0 - torch.sum(w) / n_valid
+    new_map = GaussianVoxelMap(
+        leaf=vmap.leaf,
+        keys=vmap.keys,
+        moments=moments,
+        last_seen=seen[:cap],
+        epoch=epoch,
+        num_voxels=vmap.num_voxels,
+        table=table,
+    )
+    return new_map, miss_fraction
+
+
+def voxelmap_overlap(vmap: GaussianVoxelMap, frame: Frame, T: torch.Tensor) -> torch.Tensor:
+    """The share of the frame's points, moved by T, that land in a voxel of
+    the map."""
+    check_on(vmap.keys.device, frame.points, T)
+    _, found = lookup_voxels(vmap, se3.transform_points(T, frame.points), frame.mask)
+    return torch.sum(found.to(torch.float32)) / torch.clamp(frame.num_valid(), min=1)
+
+
+# the fields' numpy dtypes, as the reference saves them
+FIELD_DTYPES = {
+    "leaf": np.float32,
+    "keys": np.int32,
+    "moments": np.float32,
+    "last_seen": np.int32,
+    "epoch": np.int32,
+    "num_voxels": np.int32,
+    "table": np.float32,
+}
+
+
+def save_voxelmap(path: str, vmap: GaussianVoxelMap) -> None:
+    """The map's seven fields as a compressed `.npz`, the reference's file."""
+    np.savez_compressed(path, **{k: v.cpu().numpy() for k, v in vmap._asdict().items()})
+
+
+def load_voxelmap(path: str, *, device: DeviceLike = None) -> GaussianVoxelMap:
+    """A map from the `.npz` that `save_voxelmap` (either package's) wrote,
+    on `device` (default `cuda`). A file without `table` (the legacy
+    double-hash layout, whose `hash_index` is ignored) gets its probe table
+    rebuilt from its keys and moments."""
+    dev = resolve_device(device)
+    with np.load(path) as data:
+        fields = {k: torch.from_numpy(np.array(data[k], dtype=dt, copy=True)).to(dev)
+                  for k, dt in FIELD_DTYPES.items() if k in data.files}
+    if "table" not in fields:
+        fields["table"] = build_probe_table(fields["keys"], fields["moments"])
+    return GaussianVoxelMap(**fields)

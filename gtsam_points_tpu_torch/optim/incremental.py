@@ -63,10 +63,14 @@ def marginalize_system(A: torch.Tensor, b: torch.Tensor, marg: List[int], keep: 
 
 def marginal_information(H: torch.Tensor, bk: torch.Tensor):
     """Symmetrize H, add 1e-6 I, factor H = L Lᵀ -> (Lᵀ, delta* = H⁻¹ bk).
-    The factorization reports no error (`cholesky_ex`), so nothing is read
-    from the device."""
+    Where H is not positive definite, L's lower triangle and delta* are NaN,
+    as the reference's Cholesky gives them; the window's LM then cannot move
+    and the update keeps the previous estimates. The factorization's status
+    is a device tensor (`cholesky_ex`), so nothing is read from the device."""
     H = 0.5 * (H + H.T) + 1e-6 * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
-    L = torch.linalg.cholesky_ex(H)[0]
+    L, info = torch.linalg.cholesky_ex(H)
+    ok = info == 0
+    L = torch.where(ok, L, torch.tril(torch.full_like(L, float("nan"))))
     return L.T, torch.cholesky_solve(bk[:, None], L)[:, 0]
 
 

@@ -11,6 +11,19 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+_CONSTS: dict = {}
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """`value` as a 0-d CPU tensor of `like`'s dtype, cached. A python float
+    times or over a 0-d tensor gives a float64 tangent under
+    `torch.func.jacfwd`; a 0-d tensor of the operand's dtype does not, and
+    it enters a CUDA kernel as the same float argument as the python float,
+    so values are unchanged."""
+    key = (value, like.dtype)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(value, dtype=like.dtype)
+    return _CONSTS[key]
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:
@@ -41,9 +54,9 @@ def _sinc_coeffs(theta2: torch.Tensor):
     """(sin t / t, (1-cos t)/t^2, (t - sin t)/t^3), Taylor-safe near 0."""
     small = theta2 < 1e-8
     theta = _safe_sqrt(theta2, small)
-    a_t = 1.0 - theta2 / 6.0
-    b_t = 0.5 - theta2 / 24.0
-    c_t = 1.0 / 6.0 - theta2 / 120.0
+    a_t = 1.0 - theta2 / _const(6.0, theta2)
+    b_t = 0.5 - theta2 / _const(24.0, theta2)
+    c_t = 1.0 / 6.0 - theta2 / _const(120.0, theta2)
     safe = torch.where(small, torch.ones_like(theta), theta)
     a = torch.where(small, a_t, torch.sin(safe) / safe)
     b = torch.where(small, b_t, (1.0 - torch.cos(safe)) / torch.clamp(theta2, min=_EPS))
@@ -72,9 +85,10 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     nv2 = torch.sum(v * v, dim=-1)
     small = nv2 < 1e-10
     nv = torch.sqrt(torch.where(small, torch.ones_like(nv2), nv2))
-    theta = 2.0 * torch.atan2(nv, qw)
+    two = _const(2.0, qw)
+    theta = two * torch.atan2(nv, qw)
     qw_safe = torch.clamp(qw, min=1e-3)
-    taylor = 2.0 / qw_safe * (1.0 - nv2 / (3.0 * qw_safe * qw_safe))
+    taylor = torch.reciprocal(qw_safe) * two * (1.0 - nv2 / (_const(3.0, qw) * qw_safe * qw_safe))
     scale = torch.where(small, taylor, theta / nv)
     return v * scale[..., None]
 
@@ -92,10 +106,10 @@ def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     small = theta2 < 1e-8
     theta = _safe_sqrt(theta2, small)
     K = skew(w)
-    half = theta * 0.5
+    half = theta * _const(0.5, theta)
     cot_term = torch.where(
         small,
-        1.0 / 12.0 + theta2 / 720.0,
+        _const(1.0 / 12.0, theta2) + theta2 / _const(720.0, theta2),
         (1.0 - half * torch.cos(half) / torch.clamp(torch.sin(half), min=_EPS))
         / torch.clamp(theta2, min=_EPS),
     )
@@ -172,13 +186,14 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     tr = m00 + m11 + m22
+    one = _const(1.0, tr)
     c = torch.stack(
-        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1
+        [one + tr, one + m00 - m11 - m22, one - m00 + m11 - m22, one - m00 - m11 + m22], dim=-1
     )
     case = torch.argmax(c, dim=-1, keepdim=True)
     s = torch.sqrt(torch.clamp(torch.gather(c, -1, case)[..., 0], min=1e-12))
-    inv2s = 0.5 / s
-    half_s = 0.5 * s
+    inv2s = torch.reciprocal(s) * _const(0.5, s)
+    half_s = _const(0.5, s) * s
     q0 = torch.stack([(m21 - m12) * inv2s, (m02 - m20) * inv2s, (m10 - m01) * inv2s, half_s], -1)
     q1 = torch.stack([half_s, (m01 + m10) * inv2s, (m02 + m20) * inv2s, (m21 - m12) * inv2s], -1)
     q2 = torch.stack([(m01 + m10) * inv2s, half_s, (m12 + m21) * inv2s, (m02 - m20) * inv2s], -1)

@@ -16,7 +16,13 @@
   |q|² + |t|²), at most TIE_SHARE;
 - `overlap_score` equal;
 - `estimate_pose_gnc` on a ring pair, each package with its own FPFH,
-  within 1e-3 m and 1e-3 rad, and within 1e-5 on the same features.
+  within 1e-3 m and 1e-3 rad, and within 1e-5 on the same features;
+- `estimate_pose_ransac_from_draws` on the JAX package's own draws
+  (`PRNGKey(seed)`, `split`, the two `randint` calls) and the same
+  features: the pose within 1e-4 m and 1e-4 rad of JAX's and the same
+  inlier rate, for 6 and 4 DoF, with a taboo pose, and with `rescore_top`
+  below and equal to `max_iterations`; `estimate_pose_ransac` draws the
+  same hypotheses from the same seed, call after call.
 
 Frames carry the JAX package's kNN normals and covariances (through
 `interop.frame_from_numpy`), so both packages start from the same floats.
@@ -32,6 +38,8 @@ from gtsam_points_tpu.ops.features import estimate_normals_covs as jfeatures
 from gtsam_points_tpu.ops.hash_grid import build_hash_grid as jgrid
 from gtsam_points_tpu.ops.hash_grid import knn_search as jknn_search
 from gtsam_points_tpu.registration import GNCParams as JGNCParams
+from gtsam_points_tpu.registration import RANSACParams as JRANSACParams
+from gtsam_points_tpu.registration import estimate_pose_ransac as jransac
 from gtsam_points_tpu.registration import align_points_4dof as jalign4
 from gtsam_points_tpu.registration import align_points_se3 as jalign
 from gtsam_points_tpu.registration import estimate_fpfh as jfpfh
@@ -46,13 +54,17 @@ from gtsam_points_tpu_torch.ops.hash_grid import build_hash_grid
 from gtsam_points_tpu_torch.registration import (
     FPFH_DIM,
     GNCParams,
+    RANSACParams,
     align_points_4dof,
     align_points_se3,
     estimate_fpfh,
     estimate_pfh,
     estimate_pose_gnc,
+    estimate_pose_ransac,
+    estimate_pose_ransac_from_draws,
     feature_knn,
     overlap_score,
+    ransac_draws,
 )
 from gtsam_points_tpu_torch.registration.fpfh import compute_pair_features, fpfh_neighbors, spfh_bins
 from gtsam_points_tpu_torch.utils import se3 as tse3
@@ -69,6 +81,8 @@ TIE_SHARE = 1e-2
 TIE_TOL = 1e-5
 GNC_TOL_M = 1e-3
 GNC_TOL_RAD = 1e-3
+RANSAC_TOL_M = 1e-4
+RANSAC_TOL_RAD = 1e-4
 RING_WORLD_N = 24000
 RING_SCAN_N = 2048
 PAIR = (0, 1)
@@ -281,3 +295,70 @@ def test_gnc_matches_jax(pair):
     # GNC finds the pair without an initial guess, as in the JAX test's bounds
     m, r = _pose_gap(own.T_target_source.numpy(), pair["truth"])
     assert m < 0.5 and r < 0.1, (m, r)
+
+
+# -- RANSAC -------------------------------------------------------------------------
+
+
+def _jax_draws(params, n_src: int):
+    """The JAX package's draws (ransac.py: PRNGKey(seed), split, the overlap
+    sample from the second key, the hypotheses from the first)."""
+    k_sample, k_overlap = jax.random.split(jax.random.PRNGKey(params.seed))
+    score_idx = jax.random.randint(k_overlap, (params.num_overlap_samples,), 0, n_src)
+    cand = jax.random.randint(k_sample, (params.max_iterations, 3), 0, n_src)
+    return np.asarray(cand), np.asarray(score_idx)
+
+
+RANSAC_CASES = {
+    "6dof": dict(max_iterations=1024, rescore_top=128),
+    "4dof": dict(max_iterations=1024, rescore_top=128, dof=4),
+    "all_rescored": dict(max_iterations=256, rescore_top=256, seed=3),
+}
+
+
+def _ransac_pair(pair, kw, taboo=None):
+    jf, tf, jF = pair["jax"], pair["torch"], pair["jax_fpfh"]
+    jp, tp = JRANSACParams(**kw), RANSACParams(**kw)
+    cand, score_idx = _jax_draws(jp, tf[1].capacity)
+    jt = None if taboo is None else jnp.asarray(taboo)
+    jr = jax.jit(lambda: jransac(jf[0], jf[1], jnp.asarray(jF[0]), jnp.asarray(jF[1]), jp, taboo=jt))()
+    tr = estimate_pose_ransac_from_draws(tf[0], tf[1], _t(jF[0]), _t(jF[1]), tp, torch.from_numpy(cand),
+                                         torch.from_numpy(score_idx), None if taboo is None else _t(taboo))
+    return jr, tr
+
+
+@pytest.mark.parametrize("case", list(RANSAC_CASES))
+def test_ransac_on_jax_draws_matches_jax(pair, case):
+    jr, tr = _ransac_pair(pair, RANSAC_CASES[case])
+    m, r = _pose_gap(tr.T_target_source.numpy(), np.asarray(jr.T_target_source))
+    assert m < RANSAC_TOL_M and r < RANSAC_TOL_RAD, (m, r)
+    assert float(tr.inlier_rate) == float(jr.inlier_rate)
+    assert tr.T_target_source.shape == (4, 4) and 0.0 < float(tr.inlier_rate) <= 1.0
+
+
+def test_ransac_taboo_matches_jax(pair):
+    """The best pose of the 6-DoF case made taboo: both packages reject it
+    (and every hypothesis near it) and agree on the next best."""
+    jr0, _ = _ransac_pair(pair, RANSAC_CASES["6dof"])
+    taboo = np.asarray(jr0.T_target_source)[None]
+    jr, tr = _ransac_pair(pair, RANSAC_CASES["6dof"], taboo)
+    m, r = _pose_gap(tr.T_target_source.numpy(), np.asarray(jr.T_target_source))
+    assert m < RANSAC_TOL_M and r < RANSAC_TOL_RAD, (m, r)
+    assert float(tr.inlier_rate) == float(jr.inlier_rate)
+    m, r = _pose_gap(tr.T_target_source.numpy(), taboo[0])
+    assert m >= RANSACParams().taboo_thresh_trans or r >= RANSACParams().taboo_thresh_rot
+
+
+def test_ransac_generator_reproducible(pair):
+    tf, jF = pair["torch"], pair["jax_fpfh"]
+    params = RANSACParams(max_iterations=512, rescore_top=64, seed=7)
+    cand, score_idx = ransac_draws(params, tf[1].capacity)
+    g = torch.Generator().manual_seed(7)
+    assert torch.equal(score_idx, torch.randint(0, tf[1].capacity, (params.num_overlap_samples,), generator=g))
+    assert torch.equal(cand, torch.randint(0, tf[1].capacity, (params.max_iterations, 3), generator=g))
+    a = estimate_pose_ransac(tf[0], tf[1], _t(jF[0]), _t(jF[1]), params, device="cpu")
+    b = estimate_pose_ransac(tf[0], tf[1], _t(jF[0]), _t(jF[1]), params, device="cpu",
+                             generator=torch.Generator().manual_seed(7))
+    c = estimate_pose_ransac_from_draws(tf[0], tf[1], _t(jF[0]), _t(jF[1]), params, cand, score_idx)
+    assert torch.equal(a.T_target_source, b.T_target_source) and torch.equal(a.T_target_source, c.T_target_source)
+    assert float(a.inlier_rate) == float(c.inlier_rate)

@@ -2,7 +2,9 @@
 
 - `marginalize_system`, `make_marginal_prior` and the
   `MarginalPriorFactor`'s `multi_linearize` and `error` within 1e-4 x
-  max|ref|;
+  max|ref|; where the marginal system is not positive definite, the prior
+  all NaN in both packages, and an ISAM2 update whose marginalization meets
+  such a system keeps its estimates in both;
 - the JAX tests' synthetic protocols through both packages: a BetweenFactor
   stream with drift and a late loop closure (window 3; its updates 4-9 are
   the steady state, where no structure is new), the steady-state stream of
@@ -229,6 +231,60 @@ def test_marginal_prior_factor_matches_jax(chain_system):
     jA, jb2, jerr2 = jax.jit(jg.linearize_full)(at)
     tA, tb2, terr2 = tg.linearize_full(_t(at))
     assert _rel(tA, jA) < SYSTEM_TOL and _rel(tb2, jb2) < SYSTEM_TOL and _rel(terr2, jerr2) < SYSTEM_TOL
+
+
+def test_marginal_prior_nan_where_not_positive_definite():
+    """A = I with A[8, 8] = -1e-3, marg [0], keep [1]: the kept block is not
+    positive definite, and JAX's Cholesky gives NaN; so does the port's."""
+    A = np.eye(12, dtype=np.float32)
+    A[8, 8] = -1e-3
+    b = np.linspace(-1.0, 1.0, 12).astype(np.float32)
+    poses = np.stack([np.eye(4, dtype=np.float32), _exp([0.0, 0.0, 0.1, 1.0, 0.0, 0.0])])
+    jp = jmake_prior(jnp.asarray(A), jnp.asarray(b), jnp.asarray(poses), [0], [1])
+    tp = make_marginal_prior(_t(A), _t(b), _t(poses), [0], [1])
+    # the factor's lower triangle NaN (so Lᵀ's upper, the zeros below kept), delta* all NaN
+    assert np.isnan(np.asarray(jp.sqrt_info_t)[np.triu_indices(6)]).all() and np.isnan(np.asarray(jp.delta_star)).all()
+    for name in ("sqrt_info_t", "delta_star"):
+        assert np.array_equal(getattr(tp, name).numpy(), np.asarray(getattr(jp, name)), equal_nan=True), name
+    assert torch.equal(tp.lin_poses, _t(poses[1:]))
+
+
+def indefinite_stream(pkg: Pkg):
+    """Window 2: a prior on pose 0; a Between edge 0 -> 1 whose z weight is
+    -1e-3, with a unit prior on pose 1 that keeps the window's system
+    positive definite; then pose 2. Marginalizing pose 0 meets the edge's
+    negative curvature alone: the marginal prior on pose 1 is NaN, the
+    window's LM cannot move, and the update keeps the previous estimates.
+    -> records, snapshot."""
+    isam = pkg.ISAM2(window_size=2, lm_params=pkg.LM(max_iterations=10), **pkg.kw)
+    d = _exp([0.0, 0.0, 0.05, 1.0, 0.1, 0.0])
+    T1, T2 = d, d @ d
+    w = np.full(6, 1e2, np.float32)
+    w[5] = -1e-3
+    out = [_record(isam, isam.update([pkg.Prior(prior=pkg.arr(np.eye(4)), weights=pkg.arr(np.full(6, 1e6)), key=0)],
+                                     {0: pkg.arr(np.eye(4))}))]
+    init1 = T1 @ _exp([0.01, 0.0, 0.0, 0.05, 0.0, 0.0])
+    out.append(_record(isam, isam.update(
+        [pkg.Between(measured=pkg.arr(d), weights=pkg.arr(w), target_key=0, source_key=1),
+         pkg.Prior(prior=pkg.arr(T1), weights=pkg.arr(np.ones(6)), key=1)], {1: pkg.arr(init1)})))
+    init2 = T2 @ _exp([0.0, 0.01, 0.0, 0.0, 0.05, 0.0])
+    out.append(_record(isam, isam.update(
+        [pkg.Between(measured=pkg.arr(d), weights=pkg.arr(np.full(6, 1e2)), target_key=1, source_key=2)],
+        {2: pkg.arr(init2)})))
+    return out, interop.isam2_to_numpy(isam), init2
+
+
+def test_isam2_update_keeps_estimates_at_nan_marginal_prior():
+    (jr, js, init2), (tr, ts, _) = indefinite_stream(JAX), indefinite_stream(PORT)
+    _assert_streams(jr, tr)
+    assert tr[-1]["frozen"] == [0] and tr[-1]["window"] == [1, 2]
+    for rec, snap in ((jr, js), (tr, ts)):
+        (prior,) = snap["marginal_priors"]
+        assert prior["pose_keys"] == (1,)
+        assert np.isnan(prior["sqrt_info_t"][np.triu_indices(6)]).all() and np.isnan(prior["delta_star"]).all()
+        # pose 1 where the update before left it, pose 2 at its initial value
+        assert np.array_equal(rec[-1]["estimates"][1], rec[-2]["estimates"][1])
+        assert np.array_equal(rec[-1]["estimates"][2], init2.astype(np.float32))
 
 
 # -- the synthetic protocols --------------------------------------------------------

@@ -10,19 +10,26 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import gtsam_points_tpu_torch
-from gtsam_points_tpu_torch.factors import PriorFactor
-from gtsam_points_tpu_torch.ops.voxelmap import empty_voxelmap
+from gtsam_points_tpu_torch.factors import PriorFactor, make_evm_factor, make_lsq_ba_factor
+from gtsam_points_tpu_torch.ops.voxelmap import empty_voxelmap, load_voxelmap, save_voxelmap
 from gtsam_points_tpu_torch.optim import FixedLagSmoother, ISAM2Ext
 from gtsam_points_tpu_torch.pipelines.odometry import (
     OdometryParams,
     init_odometry,
     make_odometry_stepper,
 )
-from gtsam_points_tpu_torch.registration import GNCParams, estimate_fpfh, estimate_pose_gnc
+from gtsam_points_tpu_torch.registration import (
+    GNCParams,
+    RANSACParams,
+    estimate_fpfh,
+    estimate_pose_gnc,
+    estimate_pose_ransac,
+)
 from gtsam_points_tpu_torch.types.frame import make_frame
 
 torch.set_num_threads(1)
@@ -56,7 +63,7 @@ def test_no_source_names_jax_or_the_jax_package():
     assert not banned.search((REPO / "chip_smoke.py").read_text())
 
 
-def test_entry_points_refuse_cpu_fallback(monkeypatch):
+def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     """Without device=, entry points mean cuda; with CUDA absent they raise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     frame = make_frame([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], device="cpu")
@@ -95,6 +102,27 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         estimate_pose_gnc(nframe, nframe, feats, feats.to("meta"), device="cpu")
     res = estimate_pose_gnc(nframe, nframe, feats, feats, GNCParams(max_iterations=2), device="cpu")
     assert res.T_target_source.device.type == "cpu"
+    # RANSAC, the bundle-adjustment factors and the voxel map's file
+    small = RANSACParams(max_iterations=16, rescore_top=4, num_overlap_samples=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        estimate_pose_ransac(nframe, nframe, feats, feats, small)
+    with pytest.raises(ValueError):
+        estimate_pose_ransac(nframe, nframe, feats, feats.to("meta"), small, device="cpu")
+    res = estimate_pose_ransac(nframe, nframe, feats, feats, small, device="cpu")
+    assert res.T_target_source.device.type == "cpu"
+    per_key = {0: pts[:20], 1: pts[20:40], 2: pts[40:]}
+    moments = {k: (len(p), p.mean(0), np.cov(p.T)) for k, p in per_key.items()}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_evm_factor("plane", per_key)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_lsq_ba_factor(moments)
+    assert make_evm_factor("edge", per_key, device="cpu").points.device.type == "cpu"
+    assert make_lsq_ba_factor(moments, device="cpu").covs.device.type == "cpu"
+    path = str(tmp_path / "map.npz")
+    save_voxelmap(path, empty_voxelmap(1.0, 1024, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_voxelmap(path)
+    assert load_voxelmap(path, device="cpu").table.device.type == "cpu"
 
 
 def test_float32_pins():

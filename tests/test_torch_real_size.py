@@ -1128,6 +1128,228 @@ def gnc_order_shift(n_poses: int, pair, n_orders: int) -> dict:
     return r
 
 
+# -- phases 28-30: global registration and its refine, LOAM, CT-ICP, BA ------------------
+
+
+def _api(package: str) -> dict:
+    """One package's names for phases 28-30."""
+    if package == "jax":
+        from gtsam_points_tpu import factors as F
+        from gtsam_points_tpu import optim as O
+        from gtsam_points_tpu.optim.lm import LMParams
+        from gtsam_points_tpu.registration import RANSACParams, estimate_fpfh, estimate_pose_ransac
+        from gtsam_points_tpu.types.frame import transform_frame
+
+        return {"F": F, "O": O, "LM": LMParams, "RANSAC": RANSACParams, "fpfh": jax.jit(estimate_fpfh),
+                "ransac": lambda *a: jax.jit(lambda: estimate_pose_ransac(*a))(), "transform": transform_frame,
+                "arr": jax.numpy.asarray, "make": jmake, "features": jfeatures, "kw": {},
+                "lm": lambda g, p, it: jax.jit(lambda x: O.optimize_lm(g, x, LMParams(max_iterations=it)))(p)}
+    from gtsam_points_tpu_torch import factors as F
+    from gtsam_points_tpu_torch import optim as O
+    from gtsam_points_tpu_torch.registration import RANSACParams, estimate_fpfh, estimate_pose_ransac
+
+    return {"F": F, "O": O, "LM": O.LMParams, "RANSAC": RANSACParams,
+            "fpfh": lambda f: estimate_fpfh(f, device="cpu"),
+            "ransac": lambda *a: estimate_pose_ransac(*a, device="cpu"), "transform": ttransform,
+            "arr": lambda x: torch.from_numpy(np.array(x, dtype=np.float32)),
+            "make": lambda *a, **k: tmake(*a, device="cpu", **k), "features": tfeatures, "kw": {"device": "cpu"},
+            "lm": lambda g, p, it: O.optimize_lm(g, p, O.LMParams(max_iterations=it))}
+
+
+def _refine(api: dict, target, source, T_coarse):
+    """demo_global_registration's refine: the source moved by the coarse
+    pose, a unary GICP factor (max corr 2.0), REFINE_ITERATIONS LM
+    iterations from I -> (T_fine = refined · coarse, numpy; iterations)."""
+    T = api["arr"](T_coarse)
+    graph = api["O"].FactorGraph(num_poses=1)
+    graph.add(api["F"].make_gicp_factor(-1, 0, target, api["transform"](T, source),
+                                        max_corr_dist=chip_smoke.REFINE_MAX_CORR))
+    res = api["lm"](graph, api["arr"](np.eye(4, dtype=np.float32)[None]), chip_smoke.REFINE_ITERATIONS)
+    return np.asarray(res.poses[0] @ T), int(res.status.num_iterations)
+
+
+def _global_frames(package: str, scans, pair):
+    """Phase 28's inputs on one package: phase 23's frames of the pair and
+    their FPFH."""
+    api = _api(package)
+    frames = _graph_frames(package, [scans[k] for k in pair])
+    return api, frames, [api["fpfh"](f) for f in frames]
+
+
+def compare_global(n_poses: int, pair, starts: dict) -> dict:
+    """Phase 28 on the CPU, scans `pair` of n_poses: each package's own
+    RANSAC (JAX on its threefry draws, the port on its generator's) and the
+    refine from each start in `starts` (name -> [4, 4]; the RANSAC start
+    None means the port's RANSAC pose) in both packages."""
+    T_true, scans = cluster_scans(n_poses)
+    truth = (np.linalg.inv(T_true[pair[0]]) @ T_true[pair[1]]).astype(np.float32)
+    out = {"pair": list(pair)}
+    runs = {}
+    for package in ("jax", "torch"):
+        api, (a, b), (fa, fb) = _global_frames(package, scans, pair)
+        res = api["ransac"](a, b, fa, fb, api["RANSAC"](max_iterations=chip_smoke.RANSAC_ITERATIONS))
+        out[f"ransac_{package}"] = (np.asarray(res.T_target_source), float(res.inlier_rate))
+        runs[package] = (api, a, b)
+    out["starts"] = {k: (out["ransac_torch"][0] if v is None else np.asarray(v, np.float32)) for k, v in starts.items()}
+    for name, T0 in out["starts"].items():
+        for package, (api, a, b) in runs.items():
+            out[f"refine_{name}_{package}"] = _refine(api, a, b, T0)
+        j, t = out[f"refine_{name}_jax"][0], out[f"refine_{name}_torch"][0]
+        out[f"refine_{name}_gap"] = _max_gap(j, t)
+        out[f"refine_{name}_truth_jax"] = _max_gap(truth, j)
+    out["ransac_truth"] = {p: _max_gap(truth, out[f"ransac_{p}"][0]) for p in ("jax", "torch")}
+    return out
+
+
+def global_order_shift(n_poses: int, pair, starts: dict, n_orders: int) -> dict:
+    """The JAX package alone: the refine from each start with the scans'
+    points in n_orders other orders (RandomState(700 + i)) -> per start the
+    largest shift (m, rad) against the scans' own order."""
+    T_true, scans = cluster_scans(n_poses)
+    api, (a, b), _ = _global_frames("jax", scans, pair)
+    base = {k: _refine(api, a, b, T0)[0] for k, T0 in starts.items()}
+    shift = {k: [0.0, 0.0] for k in starts}
+    for i in range(n_orders):
+        rng = np.random.RandomState(700 + i)
+        oa, ob = _graph_frames("jax", [scans[k][rng.permutation(len(scans[k]))] for k in pair])
+        for k, T0 in starts.items():
+            rot, trans = tse3.pose_error(torch.from_numpy(base[k]), torch.from_numpy(_refine(api, oa, ob, T0)[0]))
+            shift[k] = [max(shift[k][0], float(trans)), max(shift[k][1], float(rot))]
+    return shift
+
+
+def _loam_pose(package: str, clouds, validate: bool):
+    """Phase 29's LOAM pair on one package -> (pose 1 [4, 4], iterations)."""
+    api = _api(package)
+    (tp, te), (sp, se) = clouds
+    f = api["F"].make_loam_factor(0, 1, api["make"](te), api["make"](tp), api["make"](se), api["make"](sp),
+                                  max_corr_dist=chip_smoke.LOAM_MAX_CORR, grid_leaf=chip_smoke.LOAM_GRID_LEAF,
+                                  enable_correspondence_validation=validate)
+    g = api["O"].FactorGraph(num_poses=2)
+    eye = np.eye(4, dtype=np.float32)
+    g.add(api["F"].PriorFactor(prior=api["arr"](eye), weights=api["arr"](np.full(6, chip_smoke.LOAM_PRIOR_WEIGHT)),
+                               key=0))
+    g.add(f)
+    res = api["lm"](g, api["arr"](np.stack([eye, eye])), chip_smoke.LOAM_ITERATIONS)
+    return np.asarray(res.poses[1]), int(res.status.num_iterations)
+
+
+def _ct_run(package: str, target_pts, raw, times, mode: str):
+    """Phase 29's CT-ICP on one package -> (poses [2, 4, 4], iterations,
+    deskewed points [N, 3])."""
+    api = _api(package)
+    k, leaf = chip_smoke.CT_FEATURE_K, chip_smoke.CT_FEATURE_LEAF
+    prep = (jax.jit(lambda f: jfeatures(f, k=k, grid_leaf=leaf)) if package == "jax"
+            else lambda f: tfeatures(f, k=k, grid_leaf=leaf))
+    target = prep(api["make"](target_pts))
+    source = prep(api["make"](raw, times=times))
+    f = api["F"].make_ct_icp_factor(0, 1, target, source, gicp=mode == "gicp", point_to_plane=mode == "plane",
+                                    max_corr_dist=chip_smoke.CT_MAX_CORR, grid_leaf=chip_smoke.CT_GRID_LEAF)
+    g = api["O"].FactorGraph(num_poses=2)
+    eye = np.eye(4, dtype=np.float32)
+    g.add(api["F"].PriorFactor(prior=api["arr"](eye), weights=api["arr"](np.full(6, chip_smoke.CT_PRIOR_WEIGHT)),
+                               key=0))
+    g.add(f)
+    res = api["lm"](g, api["arr"](np.stack([eye, eye])), chip_smoke.CT_ITERATIONS)
+    desk = api["F"].deskew(res.poses[0], res.poses[1], f.source)
+    return np.asarray(res.poses), int(res.status.num_iterations), np.asarray(desk.points)
+
+
+def _ba_run(package: str, problem, mode: str):
+    """Phase 30 on one package -> (poses [K, 4, 4], iterations)."""
+    api = _api(package)
+    T_gt = problem["T_gt"]
+    g = api["O"].FactorGraph(num_poses=len(T_gt))
+    g.add(api["F"].PriorFactor(prior=api["arr"](T_gt[0]), weights=api["arr"](np.full(6, 1e6)), key=0))
+    g.add(api["F"].PriorFactor(prior=api["arr"](T_gt[1]), weights=api["arr"](np.full(6, 1e2)), key=1))
+    if mode == "evm":
+        for f in problem["plane_feats"]:
+            g.add(api["F"].make_evm_factor("plane", f, **api["kw"]))
+        for f in problem["edge_feats"]:
+            g.add(api["F"].make_evm_factor("edge", f, **api["kw"]))
+    else:
+        for f in problem["plane_feats"]:
+            g.add(api["F"].make_lsq_ba_factor(chip_smoke.ba_moments(f), **api["kw"]))
+    res = api["lm"](g, api["arr"](problem["start"]), chip_smoke.BA_ITERATIONS)
+    return np.asarray(res.poses), int(res.status.num_iterations)
+
+
+def _max_gap(a, b) -> tuple:
+    rot, trans = tse3.pose_error(torch.from_numpy(np.asarray(a, np.float32)), torch.from_numpy(np.asarray(b, np.float32)))
+    return float(trans.max()), float(rot.max())
+
+
+def _permuted(arrays, seed: int):
+    """Each array's rows in one other order (RandomState(seed)), the same
+    permutation for arrays of one length (points and their times)."""
+    rng = np.random.RandomState(seed)
+    perms = {}
+    return [a[perms.setdefault(len(a), rng.permutation(len(a)))] for a in arrays]
+
+
+def compare_scan_factors(orders: int, loam: bool, ct: bool) -> dict:
+    """Phase 29 in both packages on the CPU (and with `orders`, the JAX
+    package alone with every cloud's points in other orders)."""
+    out = {}
+    if loam:
+        T, clouds = chip_smoke.loam_clouds()
+        truth = (np.linalg.inv(T[0]) @ T[1]).astype(np.float32)
+        for validate in (False, True):
+            name = "validated" if validate else "plain"
+            j, ji = _loam_pose("jax", clouds, validate)
+            t, ti = _loam_pose("torch", clouds, validate)
+            shift = [0.0, 0.0]
+            for i in range(orders):
+                other = [tuple(_permuted(c, 800 + 10 * i + k)) for k, c in enumerate(clouds)]
+                m, r = _max_gap(j, _loam_pose("jax", other, validate)[0])
+                shift = [max(shift[0], m), max(shift[1], r)]
+            out[f"loam_{name}"] = {"jax": j, "iters": (ji, ti), "gap": _max_gap(j, t), "truth_jax": _max_gap(truth, j),
+                                   "truth_torch": _max_gap(truth, t), "shift": shift}
+    if ct:
+        target, raw, times = chip_smoke.ct_clouds()
+        for mode in chip_smoke.CT_MODES:
+            j, ji, jd = _ct_run("jax", target, raw, times, mode)
+            t, ti, td = _ct_run("torch", target, raw, times, mode)
+            shift = [0.0, 0.0]
+            for i in range(orders):
+                ot, = _permuted([target], 900 + i)
+                orw, otm = _permuted([raw, times], 950 + i)
+                m, r = _max_gap(j, _ct_run("jax", ot, orw, otm, mode)[0])
+                shift = [max(shift[0], m), max(shift[1], r)]
+            out[f"ct_{mode}"] = {"jax": j, "iters": (ji, ti), "gap": _max_gap(j, t), "shift": shift,
+                                 "deskew_gap": float(np.abs(jd - td).max())}
+    return out
+
+
+def compare_ba(orders: int) -> dict:
+    """Phase 30 in both packages on the CPU (and with `orders`, the JAX
+    package alone with each feature's points in other orders)."""
+    problem = chip_smoke.ba_problem()
+    out = {"features": (len(problem["plane_feats"]), len(problem["edge_feats"]))}
+    for mode in ("evm", "lsq"):
+        j, ji = _ba_run("jax", problem, mode)
+        t, ti = _ba_run("torch", problem, mode)
+        shift = [0.0, 0.0]
+        for i in range(orders):
+            other = dict(problem)
+            for kind in ("plane_feats", "edge_feats"):
+                other[kind] = [{k: _permuted([v], 1000 + 100 * i + n)[0] for k, v in f.items()}
+                               for n, f in enumerate(problem[kind])]
+            m, r = _max_gap(j, _ba_run("jax", other, mode)[0])
+            shift = [max(shift[0], m), max(shift[1], r)]
+        out[mode] = {"jax": j, "iters": (ji, ti), "gap": _max_gap(j, t), "shift": shift,
+                     "truth_jax": _max_gap(problem["T_gt"], j), "truth_torch": _max_gap(problem["T_gt"], t)}
+    return out
+
+
+def _rows(T) -> str:
+    """Poses [P, 4, 4] or one [4, 4] as top-three-row lists, as chip_smoke.py keeps them."""
+    T = np.asarray(T, np.float32).reshape(-1, 4, 4)
+    rows = ["[" + ", ".join(np.format_float_positional(np.float32(x), unique=True) for x in p[:3].reshape(-1)) + "]"
+            for p in T]
+    return rows[0] if len(rows) == 1 else "[" + ", ".join(rows) + "]"
+
+
 def _print_rows(name: str, rows_by_run: dict) -> None:
     """Poses (top three rows, row-major) by run, as chip_smoke.py keeps them."""
     print(f"{name} = {{", flush=True)
@@ -1256,6 +1478,18 @@ def main() -> int:
                              "chip_smoke.GNC_NEAR_PAIR, both packages (0: none)")
     parser.add_argument("--gnc-orders", type=int, default=0,
                         help="other point orders of the scans for the JAX GNC pose's order shift (0: none)")
+    parser.add_argument("--ransac", type=int, default=0,
+                        help="phase 28's RANSAC and GICP refines between scan 0 and scan N - 1 of N scans and "
+                             "between chip_smoke.GNC_NEAR_PAIR, both packages (0: none)")
+    parser.add_argument("--ransac-orders", type=int, default=0,
+                        help="other point orders of the scans for the JAX refines' order shift (0: none)")
+    parser.add_argument("--loam", action="store_true", help="phase 29's LOAM pair, both packages")
+    parser.add_argument("--ct-icp", action="store_true", help="phase 29's CT-ICP in its three modes, both packages")
+    parser.add_argument("--scan-orders", type=int, default=0,
+                        help="other point orders of the clouds for the JAX LOAM and CT-ICP poses' order shift")
+    parser.add_argument("--ba", action="store_true", help="phase 30's bundle adjustment, EVM and LSQ, both packages")
+    parser.add_argument("--ba-orders", type=int, default=0,
+                        help="other point orders of the features for the JAX BA poses' order shift (0: none)")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -1376,6 +1610,48 @@ def main() -> int:
             print(f"{name}_ORDER_SHIFT_M = {max(r['shift_m']):.3e}\n{name}_ORDER_SHIFT_RAD = "
                   f"{max(r['shift_rad']):.3e} (per order {r['shift_m']})", flush=True)
             report.append(r)
+    # phase 28: RANSAC, then the refine from the port's RANSAC pose and from JAX's GNC pose
+    for name, pair, gnc in ((("FAR", (0, args.ransac - 1), chip_smoke.GNC_JAX_POSE),
+                             ("NEAR", chip_smoke.GNC_NEAR_PAIR, chip_smoke.GNC_NEAR_JAX_POSE))
+                            if args.ransac else ()):
+        gnc_T = np.concatenate([np.asarray(gnc, np.float32).reshape(3, 4), [[0, 0, 0, 1]]]).astype(np.float32)
+        r = compare_global(args.ransac, pair, {"ransac": None, "gnc": gnc_T})
+        (jT, jr), (tT, tr) = r["ransac_jax"], r["ransac_torch"]
+        print(f"RANSAC, scan {pair[0]} <- scan {pair[1]}: inlier rate jax {jr:.6f} (own draws) port {tr:.6f} "
+              f"(generator), against the truth {r['ransac_truth']}; refines port against JAX: " + ", ".join(
+                  f"{k} {r[f'refine_{k}_gap'][0]:.3e} m {r[f'refine_{k}_gap'][1]:.3e} rad (iterations "
+                  f"{r[f'refine_{k}_jax'][1]}, {r[f'refine_{k}_torch'][1]}; JAX against the truth "
+                  f"{r[f'refine_{k}_truth_jax']})" for k in r["starts"]), flush=True)
+        print(f"RANSAC_{name}_JAX_POSE = {_rows(jT)}\nRANSAC_{name}_JAX_INLIER = {jr!r}")
+        print(f"RANSAC_{name}_START = {_rows(tT)}\nRANSAC_{name}_START_INLIER = {tr!r}")
+        for k in r["starts"]:
+            print(f"REFINE_{name}_JAX_POSES[{k!r}] = {_rows(r[f'refine_{k}_jax'][0])}", flush=True)
+        if args.ransac_orders:
+            shift = global_order_shift(args.ransac, pair, r["starts"], args.ransac_orders)
+            print(f"REFINE_{name}_ORDER_SHIFT = {shift!r}", flush=True)
+        report.append({k: (v[0].tolist(), v[1]) if isinstance(v, tuple) and isinstance(v[0], np.ndarray) else v
+                       for k, v in r.items() if k != "starts"})
+    if args.loam or args.ct_icp:
+        r = compare_scan_factors(args.scan_orders, args.loam, args.ct_icp)
+        for k, v in r.items():
+            print(f"{k}: port against JAX {v['gap'][0]:.3e} m {v['gap'][1]:.3e} rad, iterations {v['iters']}, "
+                  f"order shift {v['shift']}" + (f", JAX against the truth {v['truth_jax']}, port {v['truth_torch']}"
+                                                 if "truth_jax" in v else f", deskew gap {v['deskew_gap']:.3e} m"),
+                  flush=True)
+            print(f"SCAN_JAX_POSES[{k!r}] = {_rows(v['jax'])}\nSCAN_ORDER_SHIFT[{k!r}] = {v['shift']!r}", flush=True)
+        report.append({k: {n: (x.tolist() if isinstance(x, np.ndarray) else x) for n, x in v.items()}
+                       for k, v in r.items()})
+    if args.ba:
+        r = compare_ba(args.ba_orders)
+        print(f"BA features {r['features']}", flush=True)
+        for mode in ("evm", "lsq"):
+            v = r[mode]
+            print(f"BA {mode}: port against JAX {v['gap'][0]:.3e} m {v['gap'][1]:.3e} rad, iterations {v['iters']}, "
+                  f"order shift {v['shift']}, against the truth JAX {v['truth_jax']} port {v['truth_torch']}",
+                  flush=True)
+            print(f"BA_JAX_POSES[{mode!r}] = {_rows(v['jax'])}\nBA_ORDER_SHIFT[{mode!r}] = {v['shift']!r}", flush=True)
+        report.append({m: {n: (x.tolist() if isinstance(x, np.ndarray) else x) for n, x in v.items()}
+                       if isinstance(v, dict) else v for m, v in r.items()})
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
         print(odometry_order_summary(r), flush=True)
