@@ -210,6 +210,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
      merge_frames, pad_frame, sort_by_voxel_key and sample with aux
      attributes, insert_frame_fast into phase 4's map, a save_voxelmap /
      load_voxelmap round trip;
+ 32. the colored factors: demo_colored_registration at its size (20000
+     points on a painted plane; GICP on K3, ColoredGICP, the color
+     consistency factor beside GICP), every pose against the JAX package's,
+     K3 launched once an LM iteration and held to its plain version; the
+     colored GICP against a voxel map's frame (test_voxelmap's protocol);
+     the ivox intensity gradients and their lookup against the CPU port;
+ 33. a 24-keyframe LiDAR-inertial chain of ReintegratedImuFactors through
+     the LM, the chained prediction and the bias Jacobians against the JAX
+     package and the CPU port; align_trajectories_sim3 over 4541 poses
+     against both, its synchronizing calls counted;
+ 34. on phase 4's scans: the occupancy grid of all 24 merged and each scan's
+     overlap, card against the CPU port bit for bit; the incremental
+     covariance map, 24 inserts into 262144 points with the default
+     warm-up and with a warm-up of 1, single inserts replayed on the CPU
+     port; its kNN searches on the final map;
+ 35. segmentation of phase 4's scan 0 (region growing and min-cut from a
+     floor seed): on the CPU port's kNN tables the card's masks equal the
+     CPU port's bit for bit, mask sizes against the JAX package's;
 then one JSON line for all five kernels (K3, K1, K4, K2, K5; K3's and K1's
 launches on each of their paths) and, last, the device line.
 
@@ -997,6 +1015,213 @@ BA_JAX_POSES = {
 }
 BA_ORDER_SHIFT = {'evm': [1.97e-06, 5.493e-08], 'lsq': [5.156e-06, 7.868e-07]}
 
+# Phases 32-35: the colored factors, the IMU and Sim(3) factors, the
+# occupancy and incremental covariance maps, segmentation.
+# Phase 32: demo_colored_registration's own scene and protocol (a 20 m
+# plane of 20000 points with a painted ring at r = 5 m; GICP slides along
+# it, the photometric term locks it), and test_voxelmap's colored GICP
+# against a voxel map's frame.
+COLORED_N = 20_000
+COLORED_SEED = 0
+COLORED_XI = (0.0, 0.0, 0.05, 0.4, -0.3, 0.0)
+COLORED_FEATURE_K = 10
+COLORED_FEATURE_LEAF = 1.0
+COLORED_MAX_CORR = 2.0
+COLORED_PHOTOMETRIC_WEIGHT = 20.0
+COLORED_ITERATIONS = 30
+COLORED_RUNS = ("gicp", "colored_gicp", "consistency_gicp")
+COLORED_LOCKED_M = 0.05  # the demo's label: below it "locked by the photometric term"
+SURFACE_N = 4000
+SURFACE_SEED = 3
+SURFACE_XI = (0.01, -0.01, 0.02, 0.15, -0.1, 0.05)
+SURFACE_LEAF = 0.5
+SURFACE_MAX_CORR = 1.0
+SURFACE_ITERATIONS = 20
+IVOX_TOL = 1e-5  # the ivox gradients and their lookup, card against the CPU port, x max|ref|
+# Phase 33: a LiDAR-inertial keyframe chain on ring_trajectory (lap 100: a
+# car at 13.8 m/s turning at 0.628 rad/s, keyframes at 10 Hz), IMU at 200 Hz.
+IMU_POSES = 24
+IMU_RATE_HZ = 200
+IMU_KEY_DT = 0.1
+IMU_WEIGHT = 100.0
+IMU_PRIOR_WEIGHT = 1e6
+IMU_NOISE = 0.1
+IMU_SEED = 42
+IMU_ITERATIONS = 30
+IMU_PREDICT_TOL_M = 1e-4
+IMU_JAC_TOL = 1e-5  # the bias Jacobians, card against the CPU port, x max|ref|
+GRAVITY_MS2 = 9.80665
+# Sim(3) alignment over KITTI 00's trajectory length, the second trajectory
+# the first under SIM3_XI at scale SIM3_SCALE, each pose noised.
+SIM3_POSES = 4541
+SIM3_SCALE = 1.3
+SIM3_XI = (0.1, -0.2, 0.3, 5.0, -3.0, 1.0)
+SIM3_NOISE = 0.01
+SIM3_SEED = 7
+SIM3_ITERATIONS = 20
+SIM3_SCALE_TOL = 1e-5  # relative
+SIM3_POSE_TOL = 1e-4  # m and rad
+# Phase 34: phase 4's scans at their true poses.
+OCC_LEAF = 0.5
+ICM_CAPACITY = 262_144
+ICM_K = 10
+ICM_LEAF = 1.0
+ICM_WARMUPS = (256, 1)
+ICM_EDGE_TOL = 1e-5  # a differing validity flag must lie this close to the band's edge (or be a kNN tie)
+# Phase 35: demo_segmentation's preprocessing on phase 4's scan 0, a floor seed.
+SEG_LEAF = 0.3
+SEG_CAPACITY = 16384
+SEG_FEATURE_K = 10
+SEG_FEATURE_LEAF = 1.0
+SEG_SEED_POINT = (3.0, 1.0, -0.5)
+SEG_REGION = {"distance_thresh": 0.6, "angle_thresh": 0.25}
+# the demo's radii, and tighter ones: the scan reaches 6.3 m, so the demo's
+# 12 m background radius leaves min-cut no sink edge and every point in front
+SEG_MIN_CUT = {"demo": {"foreground_radius": 4.0, "background_radius": 12.0},
+               "tight": {"foreground_radius": 1.0, "background_radius": 5.0}}
+
+# The JAX package's poses 1 of phase 32's runs (tests/test_torch_real_size.py
+# --colored --colored-orders 3, JAX_PLATFORMS=cpu; 30, 19, 20 and 15 LM
+# iterations) and their largest shift with each cloud's points in 3 other
+# orders (m, rad). The CPU port's lie within 1.5e-4 m (GICP) and 2.4e-7 m
+# (the others) of them. Against the truth JAX's GICP is 0.2869 m / 0.0309
+# rad off (it slides), ColoredGICP 0.0449 m / 0.0043 rad, the surface 0.0049
+# m / 0.0008 rad. The order alone moves the plane's poses by 2.3-5.1 cm:
+# the photometric ring is the only constraint along the plane. The card
+# takes the points in JAX's order, so the shift is printed only and each
+# pose is held at GICP_BOUND_M and _RAD.
+COLORED_JAX_POSES = {
+    "gicp": [0.9998185, -0.019039918, 0., 0.17991102, 0.01903992, 0.9998185, 0., -0.11493138, 0., 0., 1., 0.],
+    "colored_gicp": [0.9989577, -0.045642063, 0., 0.44802052, 0.04564206, 0.9989577, 0., -0.27095538, 0., 0., 1., 0.],
+    "consistency_gicp": [0.99895364, -0.045734346, 0., 0.44835347, 0.045734353, 0.99895364, 0., -0.2710058, 0., 0., 1., 0.],
+    "surface": [0.9997667, -0.019237895, -0.009826469, 0.146091, 0.019138096, 0.9997652, -0.01015161, -0.10029538, 0.01001945, 0.009961182, 0.99990016, 0.050543617],
+}
+COLORED_ORDER_SHIFT = {"gicp": [0.02267, 0.001326], "colored_gicp": [0.05089, 0.007614], "consistency_gicp": [0.05131, 0.007525], "surface": [1.085e-07, 2.66e-08]}
+# The JAX package's IMU chain (--imu: 4 LM iterations; the CPU port's poses
+# lie 2.7e-6 m from them, both 1.4e-3 m from the truth: the samples are
+# integrated by Euler steps) and its chained prediction of the last pose.
+IMU_JAX_POSES = [
+    [0.0000000066222943, -1., 0.0000000015123899, 22., 1., -0.000000006621009, 0.000000011871845, 0.00000000000015460319, 0.000000011870898, -0.0000000015110547, 1., 0.5],
+    [-0.06279051, -0.99802667, 0.0000000147752575, 21.956587, 0.9980267, -0.06279053, 0.0000000045392983, 1.3814584, -0.000000005678732, -0.0000000066090413, 1., 0.5],
+    [-0.12533323, -0.9921147, 0.000000019172344, 21.826517, 0.9921148, -0.12533326, 0.000000026615806, 2.7574651, 0.000000006180791, -0.000000008646509, 0.99999994, 0.50000006],
+    [-0.18738131, -0.9822872, 0.000000023543738, 21.610302, 0.9822872, -0.18738133, 0.00000003162016, 4.122589, 0.0000000009766907, -0.0000000049139492, 1., 0.50000006],
+    [-0.24868985, -0.9685831, 0.000000009123173, 21.3088, 0.96858305, -0.24868988, 0.000000030732245, 5.4714437, -0.000000008222644, 0.000000004342432, 0.99999994, 0.50000006],
+    [-0.30901694, -0.95105654, 0.0000000055742717, 20.923195, 0.9510565, -0.30901703, 0.000000029440761, 6.7987046, -0.00000001624897, 0.0000000056086233, 0.99999994, 0.5000001],
+    [-0.36812454, -0.92977643, 0.00000002081348, 20.455011, 0.9297765, -0.36812457, -0.000000011978798, 8.099134, -0.0000000479189, 0.00000002363257, 1., 0.5000001],
+    [-0.4257793, -0.90482706, 0.000000007896597, 19.9061, 0.90482706, -0.42577928, 0.000000012536912, 9.3676, -0.000000014454244, 0.000000023151838, 1., 0.5000002],
+    [-0.4817537, -0.8763067, 0.0000000102439985, 19.278622, 0.8763067, -0.48175374, 0.0000000066299775, 10.599097, -0.0000000020106412, 0.000000021070559, 1., 0.5000002],
+    [-0.53582686, -0.844328, 0.00000003366198, 18.575054, 0.8443279, -0.53582686, -0.0000000033380516, 11.788764, -0.00000000018624861, 0.0000000019398556, 0.99999994, 0.50000024],
+    [-0.5877853, -0.809017, 0.000000024086365, 17.798178, 0.80901694, -0.5877853, -0.000000017012152, 12.931906, 0.000000015439724, 0.000000003799302, 1.0000001, 0.50000024],
+    [-0.63742405, -0.7705131, 0.000000015066425, 16.951054, 0.77051336, -0.637424, -0.000000028552748, 14.024012, 0.000000028589866, -0.0000000043324064, 1., 0.5000002],
+    [-0.6845472, -0.72896856, 0.000000005168367, 16.03703, 0.7289686, -0.6845472, -0.00000004965168, 15.06077, 0.000000028284436, -0.0000000219299, 0.99999994, 0.5000002],
+    [-0.72896874, -0.6845471, -0.00000002031176, 15.059709, 0.6845471, -0.7289687, -0.00000005311552, 16.038092, 0.00000003581041, -0.000000057183577, 1.0000001, 0.5000002],
+    [-0.7705132, -0.63742393, -0.00000008700669, 14.02295, 0.63742393, -0.77051324, -0.0000000889706, 16.952118, -0.0000000012363586, -0.000000073637565, 1., 0.5000002],
+    [-0.809017, -0.58778536, -0.00000013038425, 12.930845, 0.58778524, -0.809017, -0.00000008933589, 17.799242, -0.00000006175145, -0.00000013545944, 1., 0.5000001],
+    [-0.84432787, -0.53582674, -0.00000016603528, 11.7877035, 0.5358268, -0.8443279, -0.00000008603167, 18.57612, -0.00000010767361, -0.00000015417442, 1., 0.5000001],
+    [-0.87630653, -0.4817537, -0.00000019872506, 10.598038, 0.48175365, -0.8763067, -0.00000008144132, 19.279688, -0.0000001416503, -0.00000015186835, 1., 0.5000001],
+    [-0.90482724, -0.42577943, -0.0000002444603, 9.366542, 0.42577934, -0.904827, -0.00000008482345, 19.907167, -0.00000019060812, -0.00000016351738, 1.0000001, 0.5000002],
+    [-0.9297765, -0.3681246, -0.00000028322728, 8.098077, 0.36812463, -0.9297764, -0.00000008883368, 20.456083, -0.00000023703895, -0.00000018314911, 1.0000001, 0.50000024],
+    [-0.95105654, -0.30901706, -0.00000032970507, 6.797647, 0.3090171, -0.95105654, -0.00000010274825, 20.924267, -0.000000276973, -0.00000019627417, 1., 0.5000003],
+    [-0.96858317, -0.24868996, -0.00000037017773, 5.4703865, 0.24869, -0.96858317, -0.00000011539282, 21.309874, -0.00000032483675, -0.00000019959505, 1.0000001, 0.5000003],
+    [-0.9822871, -0.18738142, -0.00000039064247, 4.1215324, 0.18738136, -0.98228717, -0.00000013534998, 21.61138, -0.00000038316384, -0.00000018804774, 0.99999994, 0.50000036],
+    [-0.99211466, -0.12533331, -0.00000041315394, 2.7564087, 0.12533332, -0.99211466, -0.000000106086404, 21.827595, -0.00000038392108, -0.00000019467141, 0.9999999, 0.50000036],
+]
+IMU_JAX_PREDICT = [-0.99210775, -0.12533315, 0., 2.7564151, 0.12533137, -0.9921078, 0., 21.827595, 0., 0., 1., 0.5]
+# The JAX package's Sim(3) (--sim3; the CPU port's within 8.6e-7 m and the
+# same scale to the last bit).
+SIM3_JAX = {'pose': [0.93575746, -0.30292752, -0.18053499, 5.2534018, 0.2831595, 0.95058197, -0.12733704, -2.2849154, 0.21018718, 0.068036415, 0.97529095, 1.3922057], 'scale': 1.300001621246338}
+# The JAX package's point count and mask sizes (--segmentation; the CPU
+# port's are equal).
+SEG_JAX = {'points': 2488, 'region_growing': 1158, 'min_cut_demo': 2488, 'min_cut_tight': 34}
+
+def se3_exp_np(xi):
+    """se3_exp of a twist (omega, v) as a float32 numpy [4, 4] (the port's, on the CPU)."""
+    import numpy as np
+    import torch
+
+    from gtsam_points_tpu_torch.utils import se3
+
+    return se3.se3_exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()
+
+
+def colored_scene(n: int = COLORED_N, seed: int = COLORED_SEED) -> dict:
+    """demo_colored_registration's scene: n points on z = 0 over 20 m x 20 m,
+    intensity 1 within 0.1 m of the r = 5 m ring plus N(0, 0.01), the source
+    the same points seen from se3_exp(COLORED_XI)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(n, 2).astype(np.float32) * 20 - 10
+    pts = np.concatenate([xy, np.zeros((n, 1), np.float32)], axis=1)
+    d = np.abs(np.linalg.norm(xy, axis=1) - 5.0)
+    intens = ((d < 0.1).astype(np.float32) * 1.0 + rng.randn(n).astype(np.float32) * 0.01).astype(np.float32)
+    T = se3_exp_np(COLORED_XI)
+    src = ((pts - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+    return {"target": pts, "source": src, "intensities": intens, "T_true": T}
+
+
+def surface_scene(n: int = SURFACE_N, seed: int = SURFACE_SEED) -> dict:
+    """tests/test_voxelmap.py's colored-GICP scene: a smooth surface painted
+    sin(2x) cos(2y), covariances 0.01 I, the source seen from
+    se3_exp(SURFACE_XI)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    xy = (rng.rand(n, 2) * 8 - 4).astype(np.float32)
+    z = (0.1 * np.sin(xy[:, 0]) + 0.05 * xy[:, 1]).astype(np.float32)
+    pts = np.concatenate([xy, z[:, None]], axis=1)
+    inten = (np.sin(2.0 * xy[:, 0]) * np.cos(2.0 * xy[:, 1])).astype(np.float32)
+    covs = np.tile((0.01 * np.eye(3, dtype=np.float32))[None], (n, 1, 1))
+    T = se3_exp_np(SURFACE_XI)
+    src = ((pts - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+    return {"target": pts, "source": src, "intensities": inten, "covs": covs, "T_true": T}
+
+
+def imu_chain(n_poses: int = IMU_POSES) -> dict:
+    """The keyframe chain: ring_trajectory's first n_poses poses, between
+    each pair IMU_RATE_HZ x IMU_KEY_DT body-frame samples of the ring's
+    constant yaw rate and specific force (centripetal plus gravity), zero
+    bias; the world velocity at each keyframe; start poses noised by
+    IMU_NOISE with RandomState(IMU_SEED)."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.utils.synthetic import ring_trajectory
+
+    T = np.stack(ring_trajectory(n_poses, lap=100))
+    omega = 2 * np.pi / (100 * IMU_KEY_DT)
+    speed = 22.0 * omega
+    per = int(round(IMU_RATE_HZ * IMU_KEY_DT))
+    stamps = (np.arange(per + 1) / IMU_RATE_HZ).astype(np.float32)
+    gyros = np.tile([0.0, 0.0, omega], (per + 1, 1)).astype(np.float32)
+    accs = np.tile([0.0, omega * omega * 22.0, GRAVITY_MS2], (per + 1, 1)).astype(np.float32)
+    v = (T[:, :3, :3] @ np.array([speed, 0.0, 0.0])).astype(np.float32)
+    noise = np.random.RandomState(IMU_SEED).randn(n_poses, 6) * IMU_NOISE
+    start = np.stack([T[i] @ se3_exp_np(noise[i]) for i in range(n_poses)]).astype(np.float32)
+    return {"T": T, "stamps": stamps, "accs": accs, "gyros": gyros, "v": v, "start": start}
+
+
+def sim3_trajectories(n_poses: int = SIM3_POSES) -> dict:
+    """poses_a: ring_trajectory(n_poses); poses_b: scaled_transform of
+    (S poses_a, SIM3_SCALE), S = se3_exp(SIM3_XI), each times
+    se3_exp(SIM3_NOISE N(0, 1)) with RandomState(SIM3_SEED)."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.utils.synthetic import ring_trajectory
+
+    A = np.stack(ring_trajectory(n_poses, lap=100)).astype(np.float64)
+    B = se3_exp_np(SIM3_XI).astype(np.float64)[None] @ A
+    B[:, :3, 3] *= SIM3_SCALE
+    noise = np.random.RandomState(SIM3_SEED).randn(n_poses, 6) * SIM3_NOISE
+    B = np.stack([B[i] @ se3_exp_np(noise[i]) for i in range(n_poses)])
+    return {"a": A.astype(np.float32), "b": B.astype(np.float32)}
+
+
+def segmentation_scan():
+    """Phase 4's scan 0 (ring_scans of the REAL_WORLD_N-point world, seed 1)."""
+    from gtsam_points_tpu_torch.utils.synthetic import ring_scans, ring_trajectory, ring_world
+
+    return ring_scans(ring_world(0, REAL_WORLD_N), ring_trajectory(1, lap=100), scan_n=REAL_SCAN_N, seed=1)[0]
+
 # K2 (the batched unary linearize) raced as the batched dispatch gate of
 # scripts/tpu_parity.py races it: B = 64 lanes over one 25088-slot source,
 # min_voxel_points 3 and eps 1e-3, lane b at se3_exp(K1_TWIST) with its
@@ -1464,6 +1689,7 @@ def phase_main_path(torch, profile: Optional[str], k3_payloads: dict):
             f"{'not measured' if us is None else f'{us:.3f} us'} per launch pair")
     r["launches"] = launches
     r["map"] = (state.vmap, frames[-1], poses[-1])
+    r["T_true"], r["world_poses"] = T_true, T0 @ poses
     return scans, frames, priors, r
 
 
@@ -4703,6 +4929,463 @@ def phase_data_model(torch, main_map) -> None:
         raise AssertionError("data model: the voxel map changed through save_voxelmap / load_voxelmap")
 
 
+def _colored_frames(torch, scene: dict, device: str):
+    """Phase 32's plane on `device`: target and source with intensities and
+    kNN features (COLORED_FEATURE_K, _LEAF)."""
+    from gtsam_points_tpu_torch.ops.features import estimate_normals_covs
+    from gtsam_points_tpu_torch.types.frame import make_frame
+
+    return [estimate_normals_covs(make_frame(scene[k], intensities=scene["intensities"], device=device),
+                                  k=COLORED_FEATURE_K, grid_leaf=COLORED_FEATURE_LEAF) for k in ("target", "source")]
+
+
+def _lm_two(torch, factors, iterations: int):
+    """`_pair_graph`'s prior and `factors`, optimize_lm from the identity on
+    the card -> (the result, ms, host clock, synchronized)."""
+    from gtsam_points_tpu_torch.optim import LMParams, optimize_lm
+
+    graph = _pair_graph(torch, factors[0])
+    for f in factors[1:]:
+        graph.add(f)
+    eye = torch.eye(4, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = optimize_lm(graph, torch.stack([eye, eye]), LMParams(max_iterations=iterations))
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def phase_colored(torch) -> dict:
+    """Phase 32: demo_colored_registration at the demo's size (colored_scene:
+    20000 points, kNN features k = 10 at leaf 1.0 on the card), a prior and
+    COLORED_ITERATIONS LM iterations from the identity: GICP (K3, its plain
+    version barred, launches = LM iterations, K3 held to its plain version
+    on the final payload by `hold_k3`), ColoredGICP (photometric weight
+    COLORED_PHOTOMETRIC_WEIGHT), and the color consistency factor beside
+    the GICP factor (K3 launches = LM iterations); each pose held to the
+    JAX package's by `_held_to_jax` on the same point order (the order
+    shift printed only), the ColoredGICP-GICP gap held to the JAX
+    package's, the demo's report (errors against the truth) printed; then
+    test_voxelmap's colored GICP against a voxel map's frame
+    (surface_scene, leaf SURFACE_LEAF, with normals), held the same way; estimate_intensity_gradients_ivox and its lookup on that map, card
+    against the CPU port within IVOX_TOL x max|ref|; ms a registration and
+    a gradient estimate. -> K3's launches by run and the times."""
+    from gtsam_points_tpu_torch.factors import (
+        estimate_intensity_gradients,
+        estimate_intensity_gradients_ivox,
+        lookup_intensity_gradients_ivox,
+        make_color_consistency_factor,
+        make_colored_gicp_factor,
+        make_gicp_factor,
+    )
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.ops.voxelmap import GaussianVoxelMap, build_voxelmap
+    from gtsam_points_tpu_torch.types.frame import make_frame
+    from gtsam_points_tpu_torch.utils import se3
+
+    scene = colored_scene()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    target, source = _colored_frames(torch, scene, "cuda")
+    torch.cuda.synchronize()
+    out = {"launches": {}, "ms": {}, "features_ms": (time.perf_counter() - t0) * 1e3}
+    truth = torch.from_numpy(scene["T_true"]).cuda()
+    kw = dict(max_corr_dist=COLORED_MAX_CORR, photometric_weight=COLORED_PHOTOMETRIC_WEIGHT)
+    makers = {
+        "gicp": lambda: [make_gicp_factor(0, 1, target, source, max_corr_dist=COLORED_MAX_CORR)],
+        "colored_gicp": lambda: [make_colored_gicp_factor(0, 1, target, source, **kw)],
+        "consistency_gicp": lambda: [make_gicp_factor(0, 1, target, source, max_corr_dist=COLORED_MAX_CORR),
+                                     make_color_consistency_factor(0, 1, target, source, **kw)],
+    }
+    poses = {}
+    for run in COLORED_RUNS:
+        factors = makers[run]()
+        _zero_counts(FL)
+        with mock.patch.object(FL, "linearize_fused_plain", side_effect=AssertionError("K3's plain version ran")):
+            res, ms = _lm_two(torch, factors, COLORED_ITERATIONS)
+        iters, launches = int(res.status.num_iterations), FL.launches
+        out["launches"][run], out["ms"][run] = launches, ms
+        rot_t, trans_t = se3.pose_error(truth, res.poses[1])
+        poses[run] = res.poses[1]
+        held = _held_to_jax(torch, f"colored: {run}", res.poses[1], [COLORED_JAX_POSES[run]], COLORED_ORDER_SHIFT[run],
+                            use_shift=False)
+        label = "slides along the plane" if float(trans_t) > COLORED_LOCKED_M else "locked by the photometric term"
+        log(f"[colored] {run}: {iters} LM iterations, K3 launches {launches}, ms {ms:.3f} (host clock, synchronized); "
+            f"rot err {float(rot_t):.4f} rad, trans err {float(trans_t):.4f} m ({label}, the demo's report); {held}")
+        expect = iters if run != "colored_gicp" else 0
+        if launches != expect or iters == 0:
+            raise AssertionError(f"colored: {run} launched K3 {launches} times in {iters} LM iterations")
+        if run == "gicp":
+            hold_k3(torch, "colored", "the demo's GICP at its final pose",
+                    factors[0].k3_inputs(res.poses, factors[0].correspondences(res.poses)))
+    jax_colored = _rows_to_poses(torch, [COLORED_JAX_POSES["gicp"], COLORED_JAX_POSES["colored_gicp"]])
+    gap_rot, gap_m = (float(x) for x in se3.pose_error(poses["gicp"], poses["colored_gicp"]))
+    jax_rot, jax_m = (float(x) for x in se3.pose_error(jax_colored[0], jax_colored[1]))
+    log(f"[colored] ColoredGICP against GICP pose: card {gap_m:.6e} m {gap_rot:.6e} rad, the JAX package's "
+        f"{jax_m:.6e} m {jax_rot:.6e} rad (must agree within {GICP_BOUND_M} m {GICP_BOUND_RAD} rad)")
+    if abs(gap_m - jax_m) > GICP_BOUND_M or abs(gap_rot - jax_rot) > GICP_BOUND_RAD:
+        raise AssertionError("colored: the photometric term moves the card's pose unlike the JAX package's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = estimate_intensity_gradients(target, grid_leaf=COLORED_FEATURE_LEAF)
+    torch.cuda.synchronize()
+    out["gradients_ms"] = (time.perf_counter() - t0) * 1e3
+
+    surf = surface_scene()
+    vmap = build_voxelmap(make_frame(surf["target"], covs=surf["covs"], intensities=surf["intensities"],
+                                     capacity=4096, device="cuda"), SURFACE_LEAF)
+    src = make_frame(surf["source"], covs=surf["covs"], intensities=surf["intensities"], capacity=4096, device="cuda")
+    factor = make_colored_gicp_factor(0, 1, vmap.as_frame(with_normals=True), src, max_corr_dist=SURFACE_MAX_CORR,
+                                      grid_leaf=SURFACE_LEAF)
+    res, ms = _lm_two(torch, [factor], SURFACE_ITERATIONS)
+    out["ms"]["surface"] = ms
+    rot_t, trans_t = se3.pose_error(torch.from_numpy(surf["T_true"]).cuda(), res.poses[1])
+    held = _held_to_jax(torch, "colored: surface", res.poses[1], [COLORED_JAX_POSES["surface"]],
+                        COLORED_ORDER_SHIFT["surface"], use_shift=False)
+    log(f"[colored] colored GICP against a leaf-{SURFACE_LEAF} voxel map's frame ({int(vmap.num_voxels)} voxels, "
+        f"{SURFACE_N} source points): {int(res.status.num_iterations)} LM iterations, ms {ms:.3f}; rot err "
+        f"{float(rot_t):.4f} rad, trans err {float(trans_t):.4f} m; {held}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vg = estimate_intensity_gradients_ivox(vmap)
+    torch.cuda.synchronize()
+    out["ivox_ms"] = (time.perf_counter() - t0) * 1e3
+    got, found = lookup_intensity_gradients_ivox(vmap, vg, src.points, src.mask)
+    cpu_map = GaussianVoxelMap(*(x.cpu() for x in vmap))
+    ref = estimate_intensity_gradients_ivox(cpu_map)
+    ref_got, ref_found = lookup_intensity_gradients_ivox(cpu_map, ref, src.points.cpu(), src.mask.cpu())
+    err, err_lookup = _rel_err(torch, vg, ref), _rel_err(torch, got, ref_got)
+    same_found = bool(torch.equal(found.cpu(), ref_found))
+    log(f"[colored] intensity gradients: per point (k = 10) on the {COLORED_N}-point target {out['gradients_ms']:.3f} "
+        f"ms (finite {bool(torch.isfinite(grads).all())}); per voxel (ivox) on the surface map "
+        f"{out['ivox_ms']:.3f} ms, card against the CPU port {err:.3e} x max|ref|, lookup {err_lookup:.3e} (tol "
+        f"{IVOX_TOL}), found flags equal {same_found} ({int(found.sum())} found)")
+    if max(err, err_lookup) > IVOX_TOL or not same_found:
+        raise AssertionError("colored: the ivox gradients on the card differ from the CPU port's")
+    return out
+
+
+def phase_imu_sim3(torch) -> dict:
+    """Phase 33: the IMU keyframe chain (imu_chain: IMU_POSES poses, a prior
+    of IMU_PRIOR_WEIGHT on pose 0, a ReintegratedImuFactor of weight
+    IMU_WEIGHT between neighbours with v_i from the truth, IMU_ITERATIONS LM
+    iterations from the noised start): poses held to the JAX package's
+    within GICP_BOUND_M and _RAD, the chained `predict` within
+    IMU_PREDICT_TOL_M of JAX's, `jacfwd` of `reintegrate` in both biases
+    card against the CPU port within IMU_JAC_TOL x max|ref|, ms an LM
+    iteration and ms a factor's linearization (its re-integration
+    included); then align_trajectories_sim3 over SIM3_POSES poses
+    (sim3_trajectories), the scale within SIM3_SCALE_TOL (relative) and the
+    pose within SIM3_POSE_TOL of JAX's and of the CPU port's; ms an
+    alignment and its synchronizing calls."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.factors import (
+        PriorFactor,
+        ReintegratedImuFactor,
+        align_trajectories_sim3,
+        make_imu_measurements,
+        reintegrate,
+    )
+    from gtsam_points_tpu_torch.optim import FactorGraph, LMParams, optimize_lm
+    from gtsam_points_tpu_torch.utils import se3
+
+    chain = imu_chain()
+    P = len(chain["T"])
+
+    def factors(device):
+        m = make_imu_measurements(chain["stamps"], chain["accs"], chain["gyros"], device=device)
+        z = torch.zeros(3, device=device)
+        w = torch.full((6,), IMU_WEIGHT, device=device)
+        v = torch.from_numpy(chain["v"]).to(device)
+        return m, [ReintegratedImuFactor(measurements=m, v_i=v[i], bias_acc=z, bias_gyro=z, weights=w,
+                                         pose_keys=(i, i + 1)) for i in range(P - 1)]
+
+    m, fs = factors("cuda")
+    T = torch.from_numpy(chain["T"]).cuda()
+    graph = FactorGraph(num_poses=P)
+    graph.add(PriorFactor(prior=T[0], weights=torch.full((6,), IMU_PRIOR_WEIGHT, device="cuda"), key=0))
+    for f in fs:
+        graph.add(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = optimize_lm(graph, torch.from_numpy(chain["start"]).cuda(), LMParams(max_iterations=IMU_ITERATIONS))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    iters = int(res.status.num_iterations)
+    held = _held_to_jax(torch, "imu: the chain", res.poses, IMU_JAX_POSES, (0.0, 0.0))
+    rot_t, trans_t = se3.pose_error(T, res.poses)
+    Tp = T[0]
+    for f in fs:
+        Tp, _ = f.predict(Tp)
+    pred_gap = float((Tp[:3, 3] - _rows_to_poses(torch, [IMU_JAX_PREDICT])[0, :3, 3]).abs().max())
+    lin_ms = _median_ms(torch, lambda: fs[0].multi_linearize(res.poses), reps=20, warmup=2)
+    ba, bg = torch.tensor([0.02, -0.01, 0.03]), torch.tensor([0.001, 0.002, -0.003])
+    m_cpu, _ = factors("cpu")
+
+    def jac(meas, a, g):
+        return torch.func.jacfwd(lambda x, y: reintegrate(meas, x, y)[:3], argnums=(0, 1))(a, g)
+
+    J, J_ref = jac(m, ba.cuda(), bg.cuda()), jac(m_cpu, ba, bg)
+    jac_err = max(_rel_err(torch, a, b) for out_a, out_b in zip(J, J_ref) for a, b in zip(out_a, out_b))
+    log(f"[imu] {P} keyframes, {P - 1} ReintegratedImuFactors of {len(chain['stamps'])} samples: {iters} LM iterations, "
+        f"{ms:.3f} ms ({ms / max(iters, 1):.3f} ms an iteration, host clock, synchronized); a factor's "
+        f"multi_linearize (its re-integration included) {lin_ms:.3f} ms; against the truth max "
+        f"{float(trans_t.max()):.6f} m {float(rot_t.max()):.6f} rad; {held}; the chained predict against the JAX "
+        f"package's {pred_gap:.3e} m (tol {IMU_PREDICT_TOL_M}); bias Jacobians card against the CPU port "
+        f"{jac_err:.3e} x max|ref| (tol {IMU_JAC_TOL})")
+    if pred_gap > IMU_PREDICT_TOL_M or jac_err > IMU_JAC_TOL:
+        raise AssertionError("imu: the chained prediction or the bias Jacobians differ")
+
+    traj = sim3_trajectories()
+    a, b = torch.from_numpy(traj["a"]).cuda(), torch.from_numpy(traj["b"]).cuda()
+    s, syncs = _syncs(torch, lambda: align_trajectories_sim3(a, b, iterations=SIM3_ITERATIONS))
+    again, sim3_ms = _host_median_ms(torch, lambda: align_trajectories_sim3(a, b, iterations=SIM3_ITERATIONS), reps=3)
+    ref = align_trajectories_sim3(a.cpu(), b.cpu(), iterations=SIM3_ITERATIONS)
+    jax_pose = _rows_to_poses(torch, [SIM3_JAX["pose"]])[0]
+    texts = []
+    for name, (pose, scale) in (("JAX", (jax_pose, SIM3_JAX["scale"])), ("the CPU port", (ref.pose.cuda(),
+                                                                                         float(ref.scale)))):
+        rot, trans = se3.pose_error(pose, s.pose)
+        dscale = abs(float(s.scale) - scale) / scale
+        texts.append(f"against {name} scale {dscale:.3e} (relative, tol {SIM3_SCALE_TOL}), pose {float(trans):.3e} m "
+                     f"{float(rot):.3e} rad (tol {SIM3_POSE_TOL})")
+        if dscale > SIM3_SCALE_TOL or float(trans) > SIM3_POSE_TOL or float(rot) > SIM3_POSE_TOL:
+            raise AssertionError(f"sim3: the alignment on the card differs from {name}'s")
+    log(f"[sim3] align_trajectories_sim3 over {SIM3_POSES} poses, {SIM3_ITERATIONS} iterations: scale "
+        f"{float(s.scale):.7f} (true {SIM3_SCALE}); median ms {sim3_ms:.3f} over 3 calls (host clock, "
+        f"synchronized); synchronizing calls in one call {syncs}; repeats equal bit for bit "
+        f"{_bits_differ(torch, (again.pose, again.scale), (s.pose, s.scale)) == 0}; " + "; ".join(texts))
+    return {"imu_ms": ms, "imu_iterations": iters, "imu_linearize_ms": lin_ms, "sim3_ms": sim3_ms, "sim3_syncs": syncs}
+
+
+def _icm_cpu(cmap):
+    """An IncrementalCovarianceMap's tensors copied to the CPU."""
+    return cmap._replace(**{k: v.cpu() for k, v in cmap._asdict().items() if k != "eig_stats"},
+                         eig_stats=type(cmap.eig_stats)(*(x.cpu() for x in cmap.eig_stats)))
+
+
+def _icm_flips(torch, card, cpu, prior_stats, ratio_sigma: float = 3.0) -> tuple:
+    """Validity flags that differ between two maps after one insert from the
+    same state -> (count, explained by a ratio within ICM_EDGE_TOL of the
+    band's edge, explained by a kNN tie: a covariance apart by FEATURE_TOL
+    x max|ref|, unexplained)."""
+    from gtsam_points_tpu_torch.ops.eigh3 import eigh3
+
+    d = card.valid.cpu() != cpu.valid
+    if not bool(d.any()):
+        return 0, 0, 0, 0
+    idx = torch.nonzero(d)[:, 0]
+    w, _ = eigh3(cpu.covs[idx])
+    e = torch.clamp(w, min=1e-12)
+    ratios = torch.stack([torch.log10(e[:, 1] / e[:, 0]), torch.log10(e[:, 2] / e[:, 1])], -1)
+    mean, std = prior_stats.mean().cpu(), torch.clamp(prior_stats.std().cpu(), min=1e-3)
+    edge = (torch.abs(ratios - mean) - ratio_sigma * std).abs().amin(-1) <= ICM_EDGE_TOL * torch.clamp(
+        ratio_sigma * std.amax(), min=1.0)
+    scale = float(cpu.covs.abs().max())
+    tie = (card.covs.cpu()[idx] - cpu.covs[idx]).abs().amax((-2, -1)) >= FEATURE_TOL * scale
+    return len(idx), int((edge & ~tie).sum()), int(tie.sum()), int((~edge & ~tie).sum())
+
+
+def phase_maps(torch, scans, T_true, odo_poses) -> dict:
+    """Phase 34 on phase 4's scans at their true poses. The occupancy grid:
+    build_occupancy_grid of all REAL_STEPS scans merged at OCC_LEAF with the
+    default block capacity, calc_overlap of each scan at its odometry pose;
+    card against the CPU port, block keys, the bit words as uint32, the hash
+    index and every overlap bit for bit. The incremental covariance map:
+    `insert` of the scans one at a time into ICM_CAPACITY points (the ring
+    wraps at the eleventh), k = ICM_K at ICM_LEAF, once for each warm-up of
+    ICM_WARMUPS (with 1 the eigenvalue band gates); the CPU port replays
+    one insert of each run from the card's state before it (the first with
+    the default warm-up; the first that wraps, where the band gates, with
+    warm-up 1; each takes ~11 s on the CPU, the whole buffer searched):
+    points, mask, birth, cursor and epoch bit for bit; normals within
+    FEATURE_TOL (up to sign: the map's normals are not oriented) for
+    FEATURE_SHARE of the points whose smallest eigenvalue is not repeated
+    (after 11 overlapping scans a point's 10 nearest neighbours are mostly
+    its own noisy copies, an isotropic cloud), every other differing
+    normal explained as in phase 19; covariances within FEATURE_TOL x
+    max|ref| for FEATURE_SHARE of the points; the differing validity flags
+    counted and each explained (`_icm_flips`);
+    knn_search_valid and knn_search_force of the last scan on the final map
+    against the CPU port (ties counted). ms a build, an overlap, an insert."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch import interop
+    from gtsam_points_tpu_torch.ops.eigh3 import eigvals3
+    from gtsam_points_tpu_torch.ops.incremental_covariance import (
+        empty_incremental_covariance_map,
+        insert,
+        knn_search_force,
+        knn_search_valid,
+    )
+    from gtsam_points_tpu_torch.ops.occupancy import build_occupancy_grid, calc_overlap
+    from gtsam_points_tpu_torch.types.frame import make_frame
+
+    n = REAL_STEPS
+    world = np.concatenate([s @ T[:3, :3].T + T[:3, 3] for s, T in zip(scans[:n], T_true[:n])]).astype(np.float32)
+    pts, mask = torch.from_numpy(world).cuda(), torch.ones(len(world), dtype=torch.bool, device="cuda")
+    grid, build_ms = _host_median_ms(torch, lambda: build_occupancy_grid(pts, mask, OCC_LEAF), reps=3)
+    ref = build_occupancy_grid(pts.cpu(), mask.cpu(), OCC_LEAF)
+    a, b = interop.occupancy_grid_to_numpy(grid), interop.occupancy_grid_to_numpy(ref)
+    differ = {k: int((a[k] != b[k]).sum()) for k in a}
+    frames = [make_frame(sc, device="cuda") for sc in scans[:n]]
+    poses = odo_poses[:n]
+    overlaps = [calc_overlap(grid, f.points, f.mask, T) for f, T in zip(frames, poses)]
+    _, ov_ms = _host_median_ms(torch, lambda: calc_overlap(grid, frames[-1].points, frames[-1].mask, poses[-1]))
+    ov_ref = [calc_overlap(ref, f.points.cpu(), f.mask.cpu(), T.cpu()) for f, T in zip(frames, poses)]
+    ov_differ = sum(float(x) != float(y) for x, y in zip(overlaps, ov_ref))
+    log(f"[occupancy] build_occupancy_grid of {len(world)} points at leaf {OCC_LEAF}: {int((grid.block_keys != 0x7FFFFFFF).sum())} "
+        f"blocks of {grid.capacity}, {build_ms:.3f} ms (median of 3, host clock, synchronized); card against the "
+        f"CPU port, values differing {differ}; calc_overlap of each scan at its odometry pose {ov_ms:.3f} ms, min "
+        f"{min(float(x) for x in overlaps):.6f}, overlaps differing from the CPU port's {ov_differ}")
+    if any(differ.values()) or ov_differ:
+        raise AssertionError("occupancy: the grid or an overlap on the card differs from the CPU port's")
+
+    out = {"occ_build_ms": build_ms, "occ_overlap_ms": ov_ms, "insert_ms": {}}
+    cap_frames = [make_frame(sc @ T[:3, :3].T + T[:3, 3], device="cuda") for sc, T in zip(scans[:n], T_true[:n])]
+    wrap = ICM_CAPACITY // REAL_SCAN_N  # the first insert whose ring write wraps
+    final = None
+    for warmup in ICM_WARMUPS:
+        cmap = empty_incremental_covariance_map(ICM_CAPACITY, device="cuda")
+        times = []
+        replay = {0} if warmup != 1 else {wrap}
+        for i, f in enumerate(cap_frames):
+            before = cmap
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cmap = insert(before, f, k=ICM_K, grid_leaf=ICM_LEAF, warmup=warmup)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i not in replay:
+                continue
+            cpu_before = _icm_cpu(before)
+            t1 = time.perf_counter()
+            ref = insert(cpu_before, _cpu_copy(f), k=ICM_K, grid_leaf=ICM_LEAF, warmup=warmup)
+            cpu_s = time.perf_counter() - t1
+            exact = {k: int((getattr(cmap, k).cpu() != getattr(ref, k)).sum()) for k in ("points", "mask", "birth",
+                                                                                           "epoch", "cursor")}
+            m = ref.mask
+            dn = (cmap.normals.cpu() - ref.normals).abs().amax(-1)[m]
+            dn = torch.minimum(dn, (cmap.normals.cpu() + ref.normals).abs().amax(-1)[m])
+            scale = float(ref.covs.abs().max())
+            dcs = (cmap.covs.cpu() - ref.covs).abs().amax((-2, -1))[m] / scale
+            # as phase 19: a normal past FEATURE_TOL is explained by a repeated smallest eigenvalue
+            # (eigen gap under FEATURE_GAP_REL) or lies within FEATURE_GAP_EPS eps over its gap
+            w = eigvals3(ref.covs[m])
+            gap = (w[:, 1] - w[:, 0]) / torch.clamp(w[:, 2], min=1e-30)
+            rep = gap < FEATURE_GAP_REL
+            bad = dn >= FEATURE_TOL
+            past = sum(_past_gap_limit(float(a), float(b), float(g)) for a, b, g in
+                       zip(dn[bad & ~rep], dcs[bad & ~rep], gap[bad & ~rep]))
+            share, share_det = float((~bad).float().mean()), float((~bad[~rep]).float().mean())
+            covs_share = float((dcs < FEATURE_TOL).float().mean())
+            flips = _icm_flips(torch, cmap, ref, before.eig_stats)
+            log(f"[icm] warm-up {warmup}, insert {i}, replayed on the CPU port ({cpu_s:.1f} s) from the card's state: "
+                f"values differing {exact}; normals within {FEATURE_TOL} (up to sign) for {share:.6f} of the "
+                f"resident points, {share_det:.6f} of those whose smallest eigenvalue is not repeated (bound "
+                f"{FEATURE_SHARE}; {int(rep.sum())} repeated, {int((bad & rep).sum())} of them differ; past the "
+                f"eigen-gap limit {past}); covariances within {FEATURE_TOL} x max|ref| for {covs_share:.6f} "
+                f"(largest {float(dcs.max()):.3e}); validity flags differing {flips[0]} (at the band's edge "
+                f"{flips[1]}, kNN ties {flips[2]}, unexplained {flips[3]}); valid {int(cmap.valid.sum())} of "
+                f"{int(cmap.mask.sum())}")
+            if any(exact.values()) or share_det < FEATURE_SHARE or past or covs_share < FEATURE_SHARE or flips[3]:
+                raise AssertionError(f"incremental covariance: insert {i} (warm-up {warmup}) on the card differs "
+                                     f"from the CPU port's")
+        out["insert_ms"][warmup] = statistics.median(times)
+        log(f"[icm] {n} inserts of {REAL_SCAN_N}-point scans into {ICM_CAPACITY} points (k = {ICM_K}, leaf {ICM_LEAF}, "
+            f"warm-up {warmup}): ms an insert median {statistics.median(times):.3f}, first {times[0]:.3f}, last "
+            f"{times[-1]:.3f} (host clock, synchronized); cursor {int(cmap.cursor)}, epoch {int(cmap.epoch)}, "
+            f"{int(cmap.mask.sum())} resident, {int(cmap.valid.sum())} valid")
+        final = cmap
+    q = cap_frames[-1]
+    cpu_map = _icm_cpu(final)
+    texts = []
+    for name, fn in (("valid", knn_search_valid), ("force", knn_search_force)):
+        card = fn(final, q.points, q.mask, 5)
+        ref = fn(cpu_map, q.points.cpu(), q.mask.cpu(), 5)
+        masks, dist, ties, other = _knn_ties(torch, card, ref, cpu_map.points, q.points.cpu())
+        texts.append(f"knn_search_{name} (k = 5): valid {int(card[2].sum())}, masks differing {masks}, distances "
+                     f"{dist}, indices differing by a tie {ties}, otherwise {other}")
+        if masks or other:
+            raise AssertionError(f"incremental covariance: knn_search_{name} on the card differs from the CPU port's")
+    log("[icm] the final map (warm-up 1), the last scan as queries: " + "; ".join(texts))
+    return out
+
+
+def phase_segmentation(torch, scan) -> dict:
+    """Phase 35: demo_segmentation's preprocessing of phase 4's scan 0
+    (voxelgrid_sampling at SEG_LEAF into SEG_CAPACITY, then kNN features)
+    on the card and on the CPU port; region_growing (SEG_REGION) and min_cut
+    (each of SEG_MIN_CUT) from the point nearest SEG_SEED_POINT, a floor
+    point. On the CPU port's frame and kNN tables copied to the card, the
+    table-taking helpers give the CPU port's masks bit for bit; the public
+    entry points' mask sizes against the JAX package's (SEG_JAX) and the
+    CPU port's, a difference only where the card's kNN table differs from
+    the CPU port's by a tie. ms each, region growing's synchronizing calls."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch.ops.downsample import voxelgrid_sampling
+    from gtsam_points_tpu_torch.ops.features import estimate_normals_covs
+    from gtsam_points_tpu_torch.ops.hash_grid import build_hash_grid, knn_search
+    from gtsam_points_tpu_torch.segmentation import MinCutParams, RegionGrowingParams, min_cut, region_growing
+    from gtsam_points_tpu_torch.segmentation.min_cut import _min_cut_from_knn
+    from gtsam_points_tpu_torch.segmentation.region_growing import _region_growing_from_knn
+    from gtsam_points_tpu_torch.types.frame import make_frame
+
+    def prep(device):
+        f = voxelgrid_sampling(make_frame(scan, device=device), SEG_LEAF, capacity=SEG_CAPACITY)
+        return estimate_normals_covs(f, k=SEG_FEATURE_K, grid_leaf=SEG_FEATURE_LEAF)
+
+    card, cpu = prep("cuda"), prep("cpu")
+    on_card = _frame_to(cpu, "cuda")
+    seed = torch.tensor(SEG_SEED_POINT, device="cuda")
+    n_pts = int(card.mask.sum())
+    if n_pts != int(cpu.mask.sum()) or _frame_bits_differ(torch, _frame_to(card, "cpu").replace(
+            normals=None, covs=None), cpu.replace(normals=None, covs=None)):
+        raise AssertionError("segmentation: voxelgrid_sampling on the card differs from the CPU port's")
+
+    def table(frame, leaf, k, **kw):
+        return knn_search(build_hash_grid(frame.points, frame.mask, leaf), frame.points, frame.mask, k, **kw)
+
+    out, texts = {}, []
+    runs = [("region_growing", RegionGrowingParams(**SEG_REGION))]
+    runs += [(f"min_cut_{name}", MinCutParams(**kw)) for name, kw in SEG_MIN_CUT.items()]
+    for name, p in runs:
+        rg = name == "region_growing"
+        kw = {"max_sq_dist": p.distance_thresh**2} if rg else {}
+
+        def run(frame, seed_point):
+            return (region_growing if rg else min_cut)(frame, seed_point, p)
+
+        got, syncs = _syncs(torch, lambda: run(card, seed))
+        _, ms = _host_median_ms(torch, lambda: run(card, seed))
+        ref = run(cpu, seed.cpu())
+        size, ref_size = int(got.sum()), int(ref.sum())
+        # the helpers on the CPU port's frame and kNN table, copied to the card
+        tbl = table(cpu, p.grid_leaf, p.k, **kw)
+        if rg:
+            given = _region_growing_from_knn(on_card, seed, p, tbl[0].cuda(), tbl[2].cuda()).cpu().numpy()
+        else:
+            given = _min_cut_from_knn(on_card, seed, p, *(x.cuda() for x in tbl))
+        same = bool(np.array_equal(given, ref.cpu().numpy() if rg else ref))
+        ties = _knn_ties(torch, table(card, p.grid_leaf, p.k, **kw), tbl, cpu.points, cpu.points)
+        out[name] = {"ms": ms, "syncs": syncs, "size": size}
+        texts.append(f"{name} {size} points (JAX {SEG_JAX[name]}, CPU port {ref_size}), {ms:.3f} ms (median of "
+                     f"{FPFH_REPS}, host clock, synchronized), synchronizing calls {syncs}; on the CPU port's kNN "
+                     f"table the card's mask equals the CPU port's {same}; the card's own table against the CPU "
+                     f"port's: masks differing {ties[0]}, distances {ties[1]}, indices by a tie {ties[2]}, "
+                     f"otherwise {ties[3]}")
+        if not same:
+            raise AssertionError(f"segmentation: {name} on the CPU port's table differs from the CPU port's")
+        if ties[0] or ties[3] or (size != ref_size and not ties[2]):
+            raise AssertionError(f"segmentation: {name} on the card differs from the CPU port's without a kNN tie")
+    log(f"[segmentation] phase 4's scan 0 at leaf {SEG_LEAF}: {n_pts} points (JAX {SEG_JAX['points']}), seed near "
+        f"{SEG_SEED_POINT}; " + "; ".join(texts))
+    return out
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -4782,6 +5465,12 @@ def main() -> int:
     phase_bundle_adjustment(torch)
     phase_data_model(torch, k3.pop("map"))
     log(f"[slice 13] phases 28-31: {time.perf_counter() - t_slice:.1f} s")
+    t_slice = time.perf_counter()
+    colored = phase_colored(torch)
+    phase_imu_sim3(torch)
+    phase_maps(torch, scans, k3.pop("T_true"), k3.pop("world_poses"))
+    phase_segmentation(torch, scans[0])
+    log(f"[slice 14] phases 32-35: {time.perf_counter() - t_slice:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -4793,7 +5482,9 @@ def main() -> int:
         "launches_by_path": {"odometry": k3["launches"], "gicp_pair": pairs["gicp"], "icp_pair": pairs["icp"],
                              "icp_plane_pair": pairs["icp_plane"], "frame_to_frame": frame_to_frame["launches"],
                              **graph, "isam2": isam2["launches"], "fixed_lag": fixed_lag["launches"],
-                             "global_refine": global_reg["launches"]},
+                             "global_refine": global_reg["launches"],
+                             "colored_demo_gicp": colored["launches"]["gicp"],
+                             "colored_demo_consistency_gicp": colored["launches"]["consistency_gicp"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],

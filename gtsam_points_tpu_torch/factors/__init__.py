@@ -28,6 +28,26 @@ from gtsam_points_tpu_torch.factors.misc_factors import (
     Pose3InterpolationFactor,
     RotateVector3Factor,
 )
+from gtsam_points_tpu_torch.factors.colored import (
+    ColorConsistencyFactor,
+    ColoredGICPFactor,
+    estimate_intensity_gradients,
+    estimate_intensity_gradients_ivox,
+    lookup_intensity_gradients_ivox,
+    make_color_consistency_factor,
+    make_colored_gicp_factor,
+)
+from gtsam_points_tpu_torch.factors.imu import ImuMeasurements, ReintegratedImuFactor, make_imu_measurements, reintegrate
+from gtsam_points_tpu_torch.factors.experimental import (
+    Sim3,
+    align_trajectories_sim3,
+    between_sim3_se3_error,
+    scaled_transform,
+    sim3_apply,
+    sim3_identity,
+    sim3_matrix,
+    sim3_retract,
+)
 
 __all__ = [
     "Linearized",
@@ -60,4 +80,23 @@ __all__ = [
     "Pose3CalibFactor",
     "Pose3InterpolationFactor",
     "RotateVector3Factor",
+    "ColorConsistencyFactor",
+    "ColoredGICPFactor",
+    "estimate_intensity_gradients",
+    "estimate_intensity_gradients_ivox",
+    "lookup_intensity_gradients_ivox",
+    "make_color_consistency_factor",
+    "make_colored_gicp_factor",
+    "ImuMeasurements",
+    "ReintegratedImuFactor",
+    "make_imu_measurements",
+    "reintegrate",
+    "Sim3",
+    "sim3_identity",
+    "sim3_matrix",
+    "sim3_apply",
+    "sim3_retract",
+    "scaled_transform",
+    "between_sim3_se3_error",
+    "align_trajectories_sim3",
 ]

@@ -33,11 +33,15 @@ class _MultiKeyAD:
 
     def multi_linearize(self, poses: torch.Tensor):
         """-> (H [6K, 6K], b [6K], error ()) at poses [P, 4, 4]."""
+        return self._linearize_with(poses, self._residual)
+
+    def _linearize_with(self, poses: torch.Tensor, residual):
+        """multi_linearize of `residual` (T [..., K, 4, 4] -> [..., D])."""
         K = len(self.pose_keys)
         sub = self._sub(poses)
 
         def at(xi):
-            return self._residual(sub @ se3.se3_exp(xi.reshape(1, K, 6)))[0]
+            return residual(sub @ se3.se3_exp(xi.reshape(1, K, 6)))[0]
 
         zero = torch.zeros((K * 6,), dtype=torch.float32, device=poses.device)
         r0 = at(zero)

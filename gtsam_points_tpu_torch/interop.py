@@ -2,13 +2,16 @@
 
 The system has no weights: its state is the voxel map, the frames, a
 scan's source clusters, a frame's hash grid, a pose graph's edges, a VGICP
-factor set and an incremental optimizer's marginal priors. These functions
+factor set and an incremental optimizer's marginal priors, IMU samples, a Sim(3), an
+occupancy grid and an incremental covariance map. These functions
 take the numpy arrays of a JAX `GaussianVoxelMap` (its seven fields), of a
 `Frame` (with its normals and covariances), of a `SourceClusters` (its four
 fields), of a `HashGrid` (its nine arrays and its coarse level), of a
 `PoseGraphEdges`, of a `VGICPFactorBatch` (its stacked maps and frames and
 its keys), of a `MarginalPriorFactor` and of the bundle-adjustment factors
-(an EVM factor's points and keys, an LSQ factor's moments), and build the
+(an EVM factor's points and keys, an LSQ factor's moments), of
+`ImuMeasurements`, `Sim3`, `OccupancyGrid` (its bit words as uint32) and
+`IncrementalCovarianceMap` (with its `RunningStatistics`), and build the
 port's state from them bit for bit, so both packages can start from the
 same map, search the same grid or optimize the same graph. `isam2_to_numpy` snapshots either
 package's `ISAM2Ext` so tests can hold the two against each other.
@@ -24,12 +27,17 @@ import torch
 from gtsam_points_tpu_torch._device import DeviceLike, resolve_device
 from gtsam_points_tpu_torch.factors.balm import EdgeEVMFactor, LsqBAFactor, PlaneEVMFactor
 from gtsam_points_tpu_torch.factors.batch import VGICPFactorBatch
+from gtsam_points_tpu_torch.factors.experimental import Sim3
+from gtsam_points_tpu_torch.factors.imu import ImuMeasurements
+from gtsam_points_tpu_torch.ops.incremental_covariance import IncrementalCovarianceMap
+from gtsam_points_tpu_torch.ops.occupancy import OccupancyGrid
 from gtsam_points_tpu_torch.ops.hash_grid import HashGrid
 from gtsam_points_tpu_torch.ops.voxelmap import FIELD_DTYPES, GaussianVoxelMap
 from gtsam_points_tpu_torch.optim.incremental import MarginalPriorFactor
 from gtsam_points_tpu_torch.optim.sparse import PoseGraphEdges
 from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
+from gtsam_points_tpu_torch.utils.stats import RunningStatistics
 
 _FRAME_FIELDS = ("points", "mask", "normals", "covs", "intensities", "times")
 _GRID_DTYPES = {
@@ -58,6 +66,18 @@ _MARGINAL_FIELDS = ("lin_poses", "sqrt_info_t", "delta_star")
 _CLUSTER_DTYPES = {"pts_p": np.float32, "covs6": np.float32, "weight": np.float32, "mask": bool}
 _EVM_DTYPES = {"points": np.float32, "point_keys": np.int64, "mask": bool}
 _LSQ_DTYPES = {"counts": np.float32, "means": np.float32, "covs": np.float32}
+_IMU_FIELDS = ("dts", "accs", "gyros")
+_STATS_FIELDS = ("count", "total", "sq_total")
+_ICM_DTYPES = {
+    "points": np.float32,
+    "mask": bool,
+    "normals": np.float32,
+    "covs": np.float32,
+    "valid": bool,
+    "birth": np.int32,
+    "epoch": np.int32,
+    "cursor": np.int32,
+}
 
 
 def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
@@ -220,3 +240,61 @@ def lsq_ba_factor_from_numpy(arrays: Mapping, device: DeviceLike = None) -> LsqB
 def lsq_ba_factor_to_numpy(f) -> dict:
     """An LSQ factor's moments as numpy arrays (either package's)."""
     return {**{k: _numpy(getattr(f, k)) for k in _LSQ_DTYPES}, "pose_keys": tuple(int(k) for k in f.pose_keys)}
+
+
+def imu_measurements_from_numpy(arrays: Mapping, device: DeviceLike = None) -> ImuMeasurements:
+    """`arrays`: dts [M], accs [M, 3], gyros [M, 3]."""
+    dev = resolve_device(device)
+    return ImuMeasurements(**{k: _tensor(arrays[k], np.float32, dev) for k in _IMU_FIELDS})
+
+
+def imu_measurements_to_numpy(m) -> dict:
+    """IMU samples as numpy arrays (either package's)."""
+    return {k: _numpy(getattr(m, k)) for k in _IMU_FIELDS}
+
+
+def sim3_from_numpy(arrays: Mapping, device: DeviceLike = None) -> Sim3:
+    """`arrays`: pose [4, 4], scale ()."""
+    dev = resolve_device(device)
+    return Sim3(pose=_tensor(arrays["pose"], np.float32, dev), scale=_tensor(arrays["scale"], np.float32, dev))
+
+
+def sim3_to_numpy(s) -> dict:
+    """A Sim(3)'s pose and scale as numpy (either package's)."""
+    return {"pose": _numpy(s.pose), "scale": _numpy(s.scale)}
+
+
+def occupancy_grid_from_numpy(arrays: Mapping, device: DeviceLike = None) -> OccupancyGrid:
+    """`arrays`: leaf, block_keys, bits [B, 2] (uint32 words, held as int64
+    in the port), hash_index."""
+    dev = resolve_device(device)
+    return OccupancyGrid(
+        leaf=_tensor(arrays["leaf"], np.float32, dev),
+        block_keys=_tensor(arrays["block_keys"], np.int32, dev),
+        bits=_tensor(np.asarray(arrays["bits"], np.uint32).astype(np.int64), np.int64, dev),
+        hash_index=_tensor(arrays["hash_index"], np.int32, dev),
+    )
+
+
+def occupancy_grid_to_numpy(grid) -> dict:
+    """An occupancy grid's arrays as numpy, its bit words as uint32 (either
+    package's)."""
+    out = {k: _numpy(getattr(grid, k)) for k in ("leaf", "block_keys", "hash_index")}
+    out["bits"] = _numpy(grid.bits).astype(np.uint32)
+    return out
+
+
+def incremental_covariance_map_from_numpy(arrays: Mapping, device: DeviceLike = None) -> IncrementalCovarianceMap:
+    """`arrays`: the map's fields (points, mask, normals, covs, valid, birth,
+    epoch, cursor) and eig_stats, a mapping of count, total, sq_total."""
+    dev = resolve_device(device)
+    stats = RunningStatistics(**{k: _tensor(arrays["eig_stats"][k], np.float32, dev) for k in _STATS_FIELDS})
+    return IncrementalCovarianceMap(**{k: _tensor(arrays[k], dt, dev) for k, dt in _ICM_DTYPES.items()},
+                                    eig_stats=stats)
+
+
+def incremental_covariance_map_to_numpy(cmap) -> dict:
+    """The map's fields as numpy, eig_stats as a dict (either package's)."""
+    out = {k: _numpy(getattr(cmap, k)) for k in _ICM_DTYPES}
+    out["eig_stats"] = {k: _numpy(getattr(cmap.eig_stats, k)) for k in _STATS_FIELDS}
+    return out

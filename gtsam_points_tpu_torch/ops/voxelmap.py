@@ -84,6 +84,23 @@ class GaussianVoxelMap(NamedTuple):
     def intensity(self) -> torch.Tensor:
         return finalize_intensity(self.moments)
 
+    def as_frame(self, with_normals: bool = False) -> Frame:
+        """The voxels as a Frame: each valid row's mean as its point, the
+        map's covariance and mean intensity; invalid rows get point 0 and
+        mask False. `with_normals` adds each voxel's normal, the smallest
+        eigenvector of cov + 1e-9 I (0 on invalid rows), which the colored
+        factors need on the target side."""
+        valid = self.keys != vk.INVALID_KEY
+        pts = torch.where(valid[:, None], self.mean, 0.0)
+        covs = self.cov
+        normals = None
+        if with_normals:
+            from gtsam_points_tpu_torch.ops.eigh3 import eigh3
+
+            _, vecs = eigh3(covs + 1e-9 * torch.eye(3, dtype=covs.dtype, device=covs.device))
+            normals = torch.where(valid[:, None], vecs[..., 0], 0.0)
+        return Frame(points=pts, mask=valid, covs=covs, normals=normals, intensities=self.intensity)
+
 
 def finalize_mean(moments: torch.Tensor) -> torch.Tensor:
     cnt = torch.clamp(moments[..., 0], min=1.0)

@@ -15,7 +15,14 @@ import pytest
 import torch
 
 import gtsam_points_tpu_torch
-from gtsam_points_tpu_torch.factors import PriorFactor, make_evm_factor, make_lsq_ba_factor
+from gtsam_points_tpu_torch.factors import (
+    PriorFactor,
+    make_evm_factor,
+    make_imu_measurements,
+    make_lsq_ba_factor,
+    sim3_identity,
+)
+from gtsam_points_tpu_torch.ops.incremental_covariance import empty_incremental_covariance_map
 from gtsam_points_tpu_torch.ops.voxelmap import empty_voxelmap, load_voxelmap, save_voxelmap
 from gtsam_points_tpu_torch.optim import FixedLagSmoother, ISAM2Ext
 from gtsam_points_tpu_torch.pipelines.odometry import (
@@ -31,6 +38,7 @@ from gtsam_points_tpu_torch.registration import (
     estimate_pose_ransac,
 )
 from gtsam_points_tpu_torch.types.frame import make_frame
+from gtsam_points_tpu_torch.utils.stats import RunningStatistics
 
 torch.set_num_threads(1)
 PKG = pathlib.Path(gtsam_points_tpu_torch.__file__).parent
@@ -123,6 +131,20 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_voxelmap(path)
     assert load_voxelmap(path, device="cpu").table.device.type == "cpu"
+    # the IMU samples, the Sim(3) identity, the incremental covariance map and its statistics
+    stamps, zeros = [0.0, 0.01, 0.02], np.zeros((3, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_imu_measurements(stamps, zeros, zeros)
+    assert make_imu_measurements(stamps, zeros, zeros, 8, device="cpu").dts.shape == (8,)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sim3_identity()
+    assert sim3_identity(device="cpu").scale.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        empty_incremental_covariance_map(64)
+    assert empty_incremental_covariance_map(64, device="cpu").eig_stats.count.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RunningStatistics.empty((2,))
+    assert RunningStatistics.empty((2,), device="cpu").total.device.type == "cpu"
 
 
 def test_float32_pins():

@@ -1342,6 +1342,163 @@ def compare_ba(orders: int) -> dict:
     return out
 
 
+def _colored_frame(package: str, cloud: dict, features: bool, capacity=None):
+    """A cloud {points, intensities, covs (or None)} as one package's frame,
+    with kNN features (phase 32's k and leaf) where `features`."""
+    f = _api(package)["make"](cloud["points"], intensities=cloud["intensities"], covs=cloud["covs"],
+                              capacity=capacity)
+    if not features:
+        return f
+    k, leaf = chip_smoke.COLORED_FEATURE_K, chip_smoke.COLORED_FEATURE_LEAF
+    return (jax.jit(lambda x: jfeatures(x, k=k, grid_leaf=leaf))(f) if package == "jax"
+            else tfeatures(f, k=k, grid_leaf=leaf))
+
+
+def _colored_clouds(perms=None) -> dict:
+    """Phase 32's four clouds (plane target and source, surface target and
+    source), each with its points' attributes; `perms` reorders each cloud."""
+    scene, surface = chip_smoke.colored_scene(), chip_smoke.surface_scene()
+    clouds = {
+        "target": {"points": scene["target"], "intensities": scene["intensities"], "covs": None},
+        "source": {"points": scene["source"], "intensities": scene["intensities"], "covs": None},
+        "surface_target": {"points": surface["target"], "intensities": surface["intensities"], "covs": surface["covs"]},
+        "surface_source": {"points": surface["source"], "intensities": surface["intensities"], "covs": surface["covs"]},
+    }
+    for name, perm in (perms or {}).items():
+        clouds[name] = {k: None if v is None else v[perm] for k, v in clouds[name].items()}
+    return clouds
+
+
+def _colored_runs(package: str, clouds: dict) -> dict:
+    """Phase 32 on one package: the demo's three registrations of the
+    painted plane and the colored GICP against the surface's voxel map ->
+    {run: (pose 1 [4, 4], iterations)}."""
+    api = _api(package)
+    F = api["F"]
+    target, source = _colored_frame(package, clouds["target"], True), _colored_frame(package, clouds["source"], True)
+    kw = dict(max_corr_dist=chip_smoke.COLORED_MAX_CORR, photometric_weight=chip_smoke.COLORED_PHOTOMETRIC_WEIGHT)
+    gicp = dict(max_corr_dist=chip_smoke.COLORED_MAX_CORR)
+    build = jbuild if package == "jax" else tbuild
+    vframe = build(_colored_frame(package, clouds["surface_target"], False, 4096),
+                   chip_smoke.SURFACE_LEAF).as_frame(with_normals=True)
+    src = _colored_frame(package, clouds["surface_source"], False, 4096)
+    factors = {
+        "gicp": [F.make_gicp_factor(0, 1, target, source, **gicp)],
+        "colored_gicp": [F.make_colored_gicp_factor(0, 1, target, source, **kw)],
+        "consistency_gicp": [F.make_gicp_factor(0, 1, target, source, **gicp),
+                             F.make_color_consistency_factor(0, 1, target, source, **kw)],
+        "surface": [F.make_colored_gicp_factor(0, 1, vframe, src, max_corr_dist=chip_smoke.SURFACE_MAX_CORR,
+                                               grid_leaf=chip_smoke.SURFACE_LEAF)],
+    }
+    eye = np.eye(4, dtype=np.float32)
+    out = {}
+    for run, fs in factors.items():
+        g = api["O"].FactorGraph(num_poses=2)
+        g.add(F.PriorFactor(prior=api["arr"](eye), weights=api["arr"](np.full(6, 1e6)), key=0))
+        for f in fs:
+            g.add(f)
+        it = chip_smoke.SURFACE_ITERATIONS if run == "surface" else chip_smoke.COLORED_ITERATIONS
+        res = api["lm"](g, api["arr"](np.stack([eye, eye])), it)
+        out[run] = (np.asarray(res.poses[1]), int(res.status.num_iterations))
+    return out
+
+
+def compare_colored(orders: int) -> dict:
+    """Phase 32 in both packages on the CPU (and with `orders`, the JAX
+    package alone with each cloud's points in other orders)."""
+    clouds = _colored_clouds()
+    truth = {"surface": chip_smoke.surface_scene()["T_true"]}
+    j, t = _colored_runs("jax", clouds), _colored_runs("torch", clouds)
+    out = {}
+    for run in j:
+        T = truth.get(run, chip_smoke.colored_scene()["T_true"])
+        out[run] = {"jax": j[run][0], "iters": (j[run][1], t[run][1]), "gap": _max_gap(j[run][0], t[run][0]),
+                    "truth_jax": _max_gap(T, j[run][0]), "truth_torch": _max_gap(T, t[run][0]), "shift": [0.0, 0.0]}
+    for i in range(orders):
+        perms = {name: np.random.RandomState(1100 + 10 * i + n).permutation(len(c["points"]))
+                 for n, (name, c) in enumerate(clouds.items())}
+        for run, (pose, _) in _colored_runs("jax", _colored_clouds(perms)).items():
+            m, r = _max_gap(j[run][0], pose)
+            out[run]["shift"] = [max(out[run]["shift"][0], m), max(out[run]["shift"][1], r)]
+    return out
+
+
+def _imu_run(package: str, chain) -> tuple:
+    """Phase 33's IMU chain on one package -> (poses [P, 4, 4], iterations,
+    the chained prediction of the last pose [4, 4])."""
+    api = _api(package)
+    F = api["F"]
+    P = len(chain["T"])
+    m = F.make_imu_measurements(chain["stamps"], chain["accs"], chain["gyros"], **api["kw"])
+    z = api["arr"](np.zeros(3, np.float32))
+    w = api["arr"](np.full(6, chip_smoke.IMU_WEIGHT, np.float32))
+    g = api["O"].FactorGraph(num_poses=P)
+    g.add(F.PriorFactor(prior=api["arr"](chain["T"][0]), weights=api["arr"](np.full(6, chip_smoke.IMU_PRIOR_WEIGHT)),
+                        key=0))
+    factors = [F.ReintegratedImuFactor(measurements=m, v_i=api["arr"](chain["v"][i]), bias_acc=z, bias_gyro=z,
+                                       weights=w, pose_keys=(i, i + 1)) for i in range(P - 1)]
+    for f in factors:
+        g.add(f)
+    res = api["lm"](g, api["arr"](chain["start"]), chip_smoke.IMU_ITERATIONS)
+    T = api["arr"](chain["T"][0])
+    for f in factors:
+        T, _ = f.predict(T)
+    return np.asarray(res.poses), int(res.status.num_iterations), np.asarray(T)
+
+
+def _sim3_run(package: str, traj):
+    api = _api(package)
+    fn = api["F"].align_trajectories_sim3
+    a, b = api["arr"](traj["a"]), api["arr"](traj["b"])
+    s = (jax.jit(lambda x, y: fn(x, y, iterations=chip_smoke.SIM3_ITERATIONS))(a, b) if package == "jax"
+         else fn(a, b, iterations=chip_smoke.SIM3_ITERATIONS))
+    return np.asarray(s.pose), float(s.scale)
+
+
+def compare_imu_sim3(imu: bool, sim3: bool) -> dict:
+    """Phase 33 in both packages on the CPU."""
+    out = {}
+    if imu:
+        chain = chip_smoke.imu_chain()
+        (jp, ji, jT), (tp, ti, tT) = _imu_run("jax", chain), _imu_run("torch", chain)
+        out["imu"] = {"jax": jp, "iters": (ji, ti), "gap": _max_gap(jp, tp), "truth_jax": _max_gap(chain["T"], jp),
+                      "truth_torch": _max_gap(chain["T"], tp), "predict_jax": jT,
+                      "predict_gap": float(np.abs(jT[:3, 3] - tT[:3, 3]).max()),
+                      "predict_truth": _max_gap(chain["T"][-1], jT)}
+    if sim3:
+        traj = chip_smoke.sim3_trajectories()
+        (jp, js), (tp, ts) = _sim3_run("jax", traj), _sim3_run("torch", traj)
+        out["sim3"] = {"jax": jp, "scale": js, "scale_torch": ts, "gap": _max_gap(jp, tp),
+                       "truth": _max_gap(chip_smoke.se3_exp_np(chip_smoke.SIM3_XI), jp)}
+    return out
+
+
+def _segment(package: str, scan):
+    """Phase 35 on one package -> {points kept, each mask's size}."""
+    api = _api(package)
+    seg = __import__("gtsam_points_tpu.segmentation" if package == "jax" else "gtsam_points_tpu_torch.segmentation",
+                     fromlist=["x"])
+    k, leaf = chip_smoke.SEG_FEATURE_K, chip_smoke.SEG_FEATURE_LEAF
+    if package == "jax":
+        prep = jax.jit(lambda f: jfeatures(jvoxelgrid(f, chip_smoke.SEG_LEAF, capacity=chip_smoke.SEG_CAPACITY),
+                                           k=k, grid_leaf=leaf))
+    else:
+        def prep(f):
+            return tfeatures(tvoxelgrid(f, chip_smoke.SEG_LEAF, capacity=chip_smoke.SEG_CAPACITY), k=k, grid_leaf=leaf)
+    frame = prep(api["make"](scan))
+    seed = np.asarray(chip_smoke.SEG_SEED_POINT, np.float32)
+    rg = seg.region_growing(frame, api["arr"](seed), seg.RegionGrowingParams(**chip_smoke.SEG_REGION))
+    sizes = {"points": int(np.asarray(frame.mask).sum()), "region_growing": int(np.asarray(rg).sum())}
+    for name, kw in chip_smoke.SEG_MIN_CUT.items():
+        sizes[f"min_cut_{name}"] = int(np.asarray(seg.min_cut(frame, seed, seg.MinCutParams(**kw))).sum())
+    return sizes
+
+
+def compare_segmentation() -> dict:
+    scan = chip_smoke.segmentation_scan()
+    return {"jax": _segment("jax", scan), "torch": _segment("torch", scan)}
+
+
 def _rows(T) -> str:
     """Poses [P, 4, 4] or one [4, 4] as top-three-row lists, as chip_smoke.py keeps them."""
     T = np.asarray(T, np.float32).reshape(-1, 4, 4)
@@ -1490,6 +1647,15 @@ def main() -> int:
     parser.add_argument("--ba", action="store_true", help="phase 30's bundle adjustment, EVM and LSQ, both packages")
     parser.add_argument("--ba-orders", type=int, default=0,
                         help="other point orders of the features for the JAX BA poses' order shift (0: none)")
+    parser.add_argument("--colored", action="store_true",
+                        help="phase 32's colored registrations (GICP, ColoredGICP, color consistency + GICP, "
+                             "the voxel-map surface), both packages")
+    parser.add_argument("--colored-orders", type=int, default=0,
+                        help="with --colored: the JAX package again with each cloud's points in this many orders")
+    parser.add_argument("--imu", action="store_true", help="phase 33's IMU keyframe chain, both packages")
+    parser.add_argument("--sim3", action="store_true", help="phase 33's Sim(3) alignment, both packages")
+    parser.add_argument("--segmentation", action="store_true",
+                        help="phase 35's region growing and min-cut on phase 4's scan 0, both packages")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -1652,6 +1818,36 @@ def main() -> int:
             print(f"BA_JAX_POSES[{mode!r}] = {_rows(v['jax'])}\nBA_ORDER_SHIFT[{mode!r}] = {v['shift']!r}", flush=True)
         report.append({m: {n: (x.tolist() if isinstance(x, np.ndarray) else x) for n, x in v.items()}
                        if isinstance(v, dict) else v for m, v in r.items()})
+    if args.colored:
+        r = compare_colored(args.colored_orders)
+        for k, v in r.items():
+            print(f"colored {k}: port against JAX {v['gap'][0]:.3e} m {v['gap'][1]:.3e} rad, iterations {v['iters']}, "
+                  f"order shift {v['shift']}, against the truth JAX {v['truth_jax']} port {v['truth_torch']}",
+                  flush=True)
+            print(f"COLORED_JAX_POSES[{k!r}] = {_rows(v['jax'])}\nCOLORED_ORDER_SHIFT[{k!r}] = {v['shift']!r}",
+                  flush=True)
+        report.append({k: {n: (x.tolist() if isinstance(x, np.ndarray) else x) for n, x in v.items()}
+                       for k, v in r.items()})
+    if args.imu or args.sim3:
+        r = compare_imu_sim3(args.imu, args.sim3)
+        if "imu" in r:
+            v = r["imu"]
+            print(f"IMU chain: port against JAX {v['gap'][0]:.3e} m {v['gap'][1]:.3e} rad, iterations {v['iters']}, "
+                  f"against the truth JAX {v['truth_jax']} port {v['truth_torch']}; chained predict port against "
+                  f"JAX {v['predict_gap']:.3e} m, JAX's against the truth {v['predict_truth']}", flush=True)
+            print(f"IMU_JAX_POSES = {_rows(v['jax'])}\nIMU_JAX_PREDICT = {_rows(v['predict_jax'])}", flush=True)
+        if "sim3" in r:
+            v = r["sim3"]
+            print(f"Sim(3): port against JAX {v['gap'][0]:.3e} m {v['gap'][1]:.3e} rad, scale JAX {v['scale']!r} "
+                  f"port {v['scale_torch']!r}; JAX's pose against S {v['truth']}", flush=True)
+            print(f"SIM3_JAX = {{'pose': {_rows(v['jax'])}, 'scale': {v['scale']!r}}}", flush=True)
+        report.append({k: {n: (x.tolist() if isinstance(x, np.ndarray) else x) for n, x in v.items()}
+                       for k, v in r.items()})
+    if args.segmentation:
+        r = compare_segmentation()
+        print(f"segmentation sizes: JAX {r['jax']} port {r['torch']}", flush=True)
+        print(f"SEG_JAX = {r['jax']!r}", flush=True)
+        report.append(r)
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
         print(odometry_order_summary(r), flush=True)
