@@ -228,6 +228,23 @@ Phases, each of which ends the run with a nonzero exit if it fails:
  35. segmentation of phase 4's scan 0 (region growing and min-cut from a
      floor seed): on the CPU port's kNN tables the card's masks equal the
      CPU port's bit for bit, mask sizes against the JAX package's;
+ 36. the distributed layer: PAR_RANKS ranks spawned on the one card, each a
+     process of its own joined over gloo (CUDA tensors), with K3's plain
+     version barred, on a suburban drive seen by a simulated HDL-64E (scans
+     thinned to 25000 points, as KITTI's are in the demo's data): the
+     distributed_mapping demo on the drive's scans 0 and 1 (voxelgrid 0.5,
+     an 8-shard map of 8192 voxels a shard, a prior and the map-sharded
+     VGICP factor through 20 LM iterations, three runs; then scan 1 inserted
+     and its overlap), the map of the drive's 24 keyframes, 40 m apart, at
+     their true poses in 8 shards of 49152 voxels and the linearize of the
+     last keyframe on it, and optimize_lm_sharded on an 8-factor VGICPFactorBatch of
+     25000-point sources, one factor a rank; every sharded linearize within
+     1e-4 x max|ref| of the replicated map's K3 on the card, the poses
+     within 1e-3 m and 1e-3 rad of the JAX package's (or twice its order
+     shift), every rank's poses and reduced systems equal bit for bit,
+     overflow and voxel counts equal to the CPU port's, K3 once an LM
+     iteration a local factor; ms a registration and a linearize,
+     collectives and bytes an LM iteration, each rank's voxels;
 then one JSON line for all five kernels (K3, K1, K4, K2, K5; K3's and K1's
 launches on each of their paths) and, last, the device line.
 
@@ -1134,6 +1151,87 @@ SIM3_JAX = {'pose': [0.93575746, -0.30292752, -0.18053499, 5.2534018, 0.2831595,
 # port's are equal).
 SEG_JAX = {'points': 2488, 'region_growing': 1158, 'min_cut_demo': 2488, 'min_cut_tight': 34}
 
+# Phase 36's scene: a suburban drive seen by a KITTI-like LiDAR (the
+# distributed_mapping demo reads KITTI 07 scans, which the repository does not
+# hold). The sensor is an HDL-64E mounted as KITTI's, LIDAR_HEIGHT m up: 32
+# beams from +2 to -8.33 deg and 32 from -8.83 to -24.33 deg, LIDAR_AZIMUTHS
+# azimuths, returns from LIDAR_MIN_M to LIDAR_MAX_M m with LIDAR_NOISE_M of
+# range noise. A sweep (about 127000 returns) is thinned as a scan dump is:
+# one point a STREET_DUMP_LEAF voxel, then at most STREET_SCAN_N at random.
+# The road winds (STREET_ROAD_AMP m over STREET_ROAD_PERIOD m); beside it
+# three rows of box houses a side, parked cars, lamp poles, trees (a trunk
+# and a crown that a ray enters up to half way) and bushes, all from
+# RandomState(STREET_SEED). The demo's scans 0 and 1 lie STREET_DEMO_STEP_M
+# apart (a frame at 10 m/s); the map's STREET_KEYFRAMES keyframes lie
+# STREET_SPACING_M apart along the road, about 920 m of it.
+LIDAR_HEIGHT = 1.73
+LIDAR_AZIMUTHS = 2048
+LIDAR_SECTOR = 32  # azimuths a ray bundle: each meets only the objects in its sector
+LIDAR_MIN_M = 3.0
+LIDAR_MAX_M = 80.0
+LIDAR_NOISE_M = 0.02
+LIDAR_CROWN_DEPTH = 0.5  # a ray returns from up to this share of its chord through a crown
+STREET_SEED = 0
+STREET_SCAN_N = 25_000
+STREET_DUMP_LEAF = 0.2
+STREET_ROAD_AMP = 12.0
+STREET_ROAD_PERIOD = 500.0
+STREET_HOUSE_ROWS = ((12.0, 20.0), (40.0, 50.0), (70.0, 80.0))  # a row's near side, m from the road
+STREET_HOUSE_GAP = (10.0, 30.0)
+STREET_WIDTH = 95.0  # trees and bushes up to this far from the road
+STREET_TREE_AREA = 150.0  # m^2 of land a tree, and a bush
+STREET_DEMO_STEP_M = 1.0
+STREET_KEYFRAMES = 24
+STREET_SPACING_M = 40.0
+
+# Phase 36: the distributed layer, PAR_RANKS ranks on one card over gloo.
+# The distributed_mapping demo's protocol on the drive's scans 0 and 1: both
+# voxelgrid-sampled at 0.5 into 16384 slots (no covariances, as the demo), an
+# 8-shard map of scan 0 at leaf 1.0 with 8192 voxels a shard, a prior and the
+# map-sharded VGICP factor (min 4 points a voxel) through optimize_lm (20
+# iterations) from the truth times Exp(PAR_DEMO_XI); then scan 1, moved by
+# the result, inserted, and its overlap.
+PAR_RANKS = 8
+PAR_LEAF = 1.0
+PAR_SAMPLE_LEAF = 0.5
+PAR_SAMPLE_CAPACITY = 16384
+PAR_DEMO_SHARD_CAPACITY = 8192
+PAR_DEMO_XI = (0.05, -0.03, 0.05, 0.3, -0.2, 0.1)
+PAR_DEMO_MIN_POINTS = 4.0
+PAR_DEMO_ITERATIONS = 20
+PAR_PRIOR_WEIGHT = 1e6
+PAR_REPEATS = 3  # each registration run this many times, every run equal to the first bit for bit
+# The map at the size that sharding is for: the drive's STREET_KEYFRAMES
+# keyframes at their true poses, 8 shards of 1.5 x 262144 / 8 voxels (rounded
+# to 128); the odometry's one map holds 262144.
+PAR_MAP_SHARD_CAPACITY = 49152
+PAR_LINEARIZE_CALLS = 20
+# The factor axis: tests/test_distributed.py's batch_problem with 25000-point
+# sources, 8 unary VGICP factors split over the ranks, 10 LM iterations.
+PAR_SCAN_CAPACITY = 25088  # the demo's frames
+PAR_BATCH_N = 25_000
+PAR_BATCH_FACTORS = 8
+PAR_BATCH_MAP_CAPACITY = 2048
+PAR_BATCH_MIN_POINTS = 3.0
+PAR_BATCH_ITERATIONS = 10
+PAR_TIMEOUT_S = 600.0  # the ranks together; a collective that waits 120 s raises
+PAR_TOL = 1e-4  # a sharded linearize against the replicated map's, x max|ref|
+PAR_BOUND_M = 1e-3
+PAR_BOUND_RAD = 1e-3
+PAR_SHIFT_MARGIN = 2.0
+# The JAX package's poses (top three rows) and iterations on 8 virtual CPU
+# devices, and the largest shift of each pose over 3 other point orders:
+# JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0
+# --orders 0 --parallel --parallel-orders 3. JAX's demo pose lies 2.019e-3 m
+# and 2.969e-4 rad from the truth.
+PAR_DEMO_JAX_POSE = [0.99999994, 0.000003039039, -0.00027080564, 1.0096073, -0.0000030816884, 1., -0.00012129432, -0.00040820154, 0.00027083166, 0.00012127449, 0.9999999, 0.001014251]
+PAR_DEMO_JAX_ITERATIONS = 7
+PAR_DEMO_ORDER_SHIFT = [2.698e-04, 5.357e-06]
+PAR_BATCH_JAX_POSES = [[0.99861574, -0.047775768, 0.021995278, 0.109111644, 0.04952281, 0.99495256, -0.087273695, 0.098323494, -0.017714638, 0.08824219, 0.9959415, -0.04562491], [0.99995863, 0.004987819, -0.0075973226, 0.020112453, -0.0053413017, 0.9988693, -0.04723806, 0.0055532875, 0.007353098, 0.0472767, 0.99885464, 0.07288487], [0.9997401, -0.021882853, 0.0064054835, 0.015776206, 0.022109354, 0.9990432, -0.037732106, 0.075228795, -0.005573627, 0.03786392, 0.9992673, -0.008859942], [0.99098986, 0.12669894, -0.043435343, 0.03623029, -0.12736113, 0.9917736, -0.012823161, 0.041346826, 0.041453358, 0.018239573, 0.9989739, -0.035964053], [0.9973703, -0.0063368785, -0.072195575, -0.012097702, -0.0018632215, 0.99359864, -0.112952836, 0.07247656, 0.0724492, 0.11279034, 0.990974, 0.07717798], [0.99884593, 0.04426619, 0.018635022, -0.09928086, -0.04412165, 0.9989933, -0.0080964295, -0.015163796, -0.018974664, 0.007264853, 0.99979365, 0.008805481], [0.99801934, 0.021231057, 0.059216626, -0.017721737, -0.017563283, 0.9979349, -0.06178469, -0.04989716, -0.06040611, 0.060622267, 0.9963312, -0.07191469], [0.99494904, 0.021287642, 0.09809783, -0.020564592, -0.029562004, 0.9960539, 0.08368195, -0.060560208, -0.09592934, -0.08615926, 0.99165213, 0.042467125]]
+PAR_BATCH_JAX_ITERATIONS = 10
+PAR_BATCH_ORDER_SHIFT_M = [5.392e-06, 8.563e-06, 4.982e-06, 3.760e-06, 6.032e-06, 7.920e-06, 5.078e-06, 2.231e-06]
+PAR_BATCH_ORDER_SHIFT_RAD = [7.918e-07, 3.398e-06, 6.497e-07, 1.390e-06, 2.174e-06, 2.943e-06, 3.731e-06, 5.971e-07]
+
 def se3_exp_np(xi):
     """se3_exp of a twist (omega, v) as a float32 numpy [4, 4] (the port's, on the CPU)."""
     import numpy as np
@@ -1142,6 +1240,207 @@ def se3_exp_np(xi):
     from gtsam_points_tpu_torch.utils import se3
 
     return se3.se3_exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()
+
+
+def box_cloud(n: int, seed: int):
+    """tests/test_distributed.py's box: the six faces of a 10 m cube, n // 3
+    points on each pair of opposite faces, 2 cm of noise across them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    pts = []
+    for ax in range(3):
+        p = rng.rand(n // 3, 3) * 10 - 5
+        p[:, ax] = np.sign(p[:, ax]) * 5 + rng.randn(n // 3) * 0.02
+        pts.append(p)
+    return np.concatenate(pts).astype(np.float32)
+
+
+def parallel_batch_problem(n: int = PAR_BATCH_N, factors: int = PAR_BATCH_FACTORS) -> dict:
+    """tests/test_distributed.py's batch_problem at n points a cloud: one box
+    target, and `factors` sources, the target moved back by T_i =
+    Exp(0.05 randn(6)) (RandomState(0)). -> {"target": [M, 3], "sources":
+    [[M, 3]], "T": [[4, 4]]}, float32."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    pts = box_cloud(n, 0)
+    sources, gts = [], []
+    for _ in range(factors):
+        T = se3_exp_np(rng.randn(6).astype(np.float32) * 0.05)
+        sources.append(((pts - T[:3, 3]) @ T[:3, :3]).astype(np.float32))
+        gts.append(T)
+    return {"target": pts, "sources": sources, "T": gts}
+
+
+def road_y(x):
+    """The road's centre line: y at x, m."""
+    import numpy as np
+
+    return STREET_ROAD_AMP * np.sin(2 * np.pi * np.asarray(x) / STREET_ROAD_PERIOD)
+
+
+def road_pose(x: float):
+    """The LiDAR's pose at x along the road, facing along it, float32 [4, 4]."""
+    import numpy as np
+
+    yaw = np.arctan(STREET_ROAD_AMP * 2 * np.pi / STREET_ROAD_PERIOD * np.cos(2 * np.pi * x / STREET_ROAD_PERIOD))
+    T = np.eye(4)
+    T[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    T[:3, 3] = (x, road_y(x), LIDAR_HEIGHT)
+    return T.astype(np.float32)
+
+
+def street_scene(length: float, seed: int = STREET_SEED) -> dict:
+    """The objects beside `length` m of road, and 120 m more at each end, in
+    float64: boxes [n, 6] (min xyz, max xyz: houses, parked cars),
+    cylinders [n, 4] (x, y, radius, height: poles, trunks), spheres [n, 4]
+    (centre, radius: crowns, bushes)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x_lo, x_hi = -120.0, length + 120.0
+    boxes, cyl, sph = [], [], []
+    for side in (-1, 1):
+        for near, far in STREET_HOUSE_ROWS:
+            x = x_lo
+            while x < x_hi:
+                w, d, h = rng.uniform(8, 18), rng.uniform(8, 14), rng.uniform(4, 12)
+                y = road_y(x + w / 2) + side * rng.uniform(near, far)
+                boxes.append((x, y if side > 0 else y - d, 0.0, x + w, y + d if side > 0 else y, h))
+                x += w + rng.uniform(*STREET_HOUSE_GAP)
+        x = x_lo
+        while x < x_hi:
+            if rng.rand() < 0.4:
+                y = road_y(x + 2.2) + side * rng.uniform(4.0, 4.6)
+                boxes.append((x, y - 0.9, 0.2, x + 4.4, y + 0.9, 1.5))
+            x += rng.uniform(5.5, 9.0)
+        for x in np.arange(x_lo, x_hi, 25.0) + rng.uniform(0, 25.0):
+            cyl.append((x, road_y(x) + side * 6.5, 0.12, 7.0))
+    boxes = np.asarray(boxes, np.float64)
+
+    def clear_of_houses(x, y, margin):
+        ok = np.ones(len(x), bool)
+        for b in boxes:
+            ok &= ~((x > b[0] - margin) & (x < b[3] + margin) & (y > b[1] - margin) & (y < b[4] + margin))
+        return ok
+
+    n = int((x_hi - x_lo) * 2 * STREET_WIDTH / STREET_TREE_AREA)
+    tx = rng.uniform(x_lo, x_hi, n)
+    ty = road_y(tx) + rng.uniform(-STREET_WIDTH, STREET_WIDTH, n)
+    ok = (np.abs(ty - road_y(tx)) > 7.0) & clear_of_houses(tx, ty, 2.0)
+    for x, y in zip(tx[ok], ty[ok]):
+        h, r = rng.uniform(2.0, 4.0), rng.uniform(1.2, 3.0)
+        cyl.append((x, y, rng.uniform(0.15, 0.35), h + r))
+        sph.append((x, y, h + r, r))
+    bx = rng.uniform(x_lo, x_hi, n)
+    by = road_y(bx) + rng.uniform(-STREET_WIDTH, STREET_WIDTH, n)
+    ok = (np.abs(by - road_y(bx)) > 5.5) & clear_of_houses(bx, by, 1.0)
+    for x, y in zip(bx[ok], by[ok]):
+        r = rng.uniform(0.5, 1.3)
+        sph.append((x, y, 0.6 * r, r))
+    return {"boxes": boxes, "cylinders": np.asarray(cyl, np.float64), "spheres": np.asarray(sph, np.float64)}
+
+
+def lidar_sweep(scene: dict, T, rng):
+    """One sweep of the LiDAR at pose T (a yaw and a position) through the
+    scene: the returns [n, 3] in the sensor frame, float32. Each ray meets
+    the ground (z = 0) and the objects whose bearing lies within its
+    LIDAR_SECTOR-azimuth sector; its return is the nearest hit."""
+    import numpy as np
+
+    o, R = T[:3, 3].astype(np.float64), T[:3, :3].astype(np.float64)
+    yaw = np.arctan2(R[1, 0], R[0, 0])
+    el = np.deg2rad(np.concatenate([np.linspace(2.0, -8.33, 32), np.linspace(-8.83, -24.33, 32)]))
+    az = (np.arange(LIDAR_AZIMUTHS) + rng.rand()) * (2 * np.pi / LIDAR_AZIMUTHS)
+    A, E = np.meshgrid(az, el, indexing="ij")  # [azimuths, beams]
+    local = np.stack([np.cos(E) * np.cos(A), np.cos(E) * np.sin(A), np.sin(E)], -1)
+    D = local @ R.T
+    t = np.where(D[..., 2] < 0, -o[2] / np.minimum(D[..., 2], -1e-12), np.inf)
+    depth = (rng.rand(*t.shape) * LIDAR_CROWN_DEPTH).reshape(LIDAR_AZIMUTHS // LIDAR_SECTOR, -1)
+    B, C, S = scene["boxes"], scene["cylinders"], scene["spheres"]
+    objects = {}
+    for kind, P, centre, radius in (("box", B, 0.5 * (B[:, :2] + B[:, 3:5]), 0.5 * np.linalg.norm(B[:, 3:5] - B[:, :2], axis=1)),
+                                    ("cylinder", C, C[:, :2], C[:, 2]), ("sphere", S, S[:, :2], S[:, 3])):
+        v = centre - o[:2]
+        dist = np.linalg.norm(v, axis=1)
+        near = dist - radius < LIDAR_MAX_M
+        bearing = np.mod(np.arctan2(v[:, 1], v[:, 0]) - yaw, 2 * np.pi)
+        half = np.where(dist > radius, np.arcsin(np.minimum(1.0, radius / np.maximum(dist, 1e-9))), np.pi)
+        objects[kind] = (P[near], bearing[near], half[near])
+    width = 2 * np.pi * LIDAR_SECTOR / LIDAR_AZIMUTHS
+    for k in range(LIDAR_AZIMUTHS // LIDAR_SECTOR):
+        mid = (k + 0.5) * width
+        d = D[k * LIDAR_SECTOR:(k + 1) * LIDAR_SECTOR].reshape(-1, 3)
+        tt = t[k * LIDAR_SECTOR:(k + 1) * LIDAR_SECTOR].reshape(-1)
+        for kind, (P, bearing, half) in objects.items():
+            P = P[np.abs(np.mod(bearing - mid + np.pi, 2 * np.pi) - np.pi) < half + width / 2 + 1e-3]
+            if not len(P):
+                continue
+            if kind == "box":  # slabs
+                inv = 1.0 / np.where(np.abs(d) < 1e-12, 1e-12, d)
+                lo, hi = (P[None, :, :3] - o) * inv[:, None], (P[None, :, 3:] - o) * inv[:, None]
+                t_in, t_out = np.max(np.minimum(lo, hi), -1), np.min(np.maximum(lo, hi), -1)
+                th = np.where((t_out >= t_in) & (t_in > 0), t_in, np.inf)
+            elif kind == "cylinder":  # vertical, from the ground to its height
+                a = (d[:, 0] ** 2 + d[:, 1] ** 2)[:, None]
+                px, py = o[0] - P[None, :, 0], o[1] - P[None, :, 1]
+                bq = 2 * (d[:, None, 0] * px + d[:, None, 1] * py)
+                disc = bq ** 2 - 4 * a * (px ** 2 + py ** 2 - P[None, :, 2] ** 2)
+                tc = (-bq - np.sqrt(np.maximum(disc, 0))) / (2 * a + 1e-30)
+                z = o[2] + tc * d[:, None, 2]
+                th = np.where((disc > 0) & (tc > 0) & (z >= 0) & (z <= P[None, :, 3]), tc, np.inf)
+            else:  # a sphere, entered up to `depth` of the chord
+                oc = o - P[:, :3]
+                bq = d @ oc.T
+                disc = bq ** 2 - (np.sum(oc * oc, 1) - P[:, 3] ** 2)[None]
+                root = np.sqrt(np.maximum(disc, 0))
+                ts = -bq - root + depth[k][:, None] * 2 * root
+                th = np.where((disc > 0) & (ts > 0), ts, np.inf)
+            tt = np.minimum(tt, th.min(1))
+        t[k * LIDAR_SECTOR:(k + 1) * LIDAR_SECTOR] = tt.reshape(LIDAR_SECTOR, -1)
+    t, local = t.reshape(-1), local.reshape(-1, 3)
+    hit = (t >= LIDAR_MIN_M) & (t <= LIDAR_MAX_M)
+    r = t[hit] + rng.randn(int(hit.sum())) * LIDAR_NOISE_M
+    return (local[hit] * r[:, None]).astype(np.float32)
+
+
+def scan_dump(points, rng):
+    """A sweep thinned as a scan dump is: the first point of each
+    STREET_DUMP_LEAF voxel, then at most STREET_SCAN_N of them at random, in
+    sweep order."""
+    import numpy as np
+
+    k = np.floor(points / STREET_DUMP_LEAF).astype(np.int64) + (1 << 20)
+    _, first = np.unique((k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2], return_index=True)
+    keep = np.sort(first)
+    if len(keep) > STREET_SCAN_N:
+        keep = np.sort(rng.choice(keep, STREET_SCAN_N, replace=False))
+    return points[keep]
+
+
+def parallel_street() -> dict:
+    """Phase 36's data from the drive (float32): "demo", the demo's scan 0
+    (target) and scan 1 (source) in their sensor frames, the true relative
+    pose ("delta") and the start, the truth times Exp(PAR_DEMO_XI);
+    "keyframes", the map's scans in the world frame; "scan_last" and
+    "T_last", the last keyframe in its sensor frame and its pose."""
+    import numpy as np
+
+    scene = street_scene((STREET_KEYFRAMES - 1) * STREET_SPACING_M)
+    rng = np.random.RandomState(STREET_SEED + 1)
+
+    def scan(T):
+        return scan_dump(lidar_sweep(scene, T, rng), rng)
+
+    T0, T1 = road_pose(0.0), road_pose(STREET_DEMO_STEP_M)
+    delta = (np.linalg.inv(T0.astype(np.float64)) @ T1.astype(np.float64)).astype(np.float32)
+    demo = {"target": scan(T0), "source": scan(T1), "delta": delta,
+            "start": (delta @ se3_exp_np(PAR_DEMO_XI)).astype(np.float32)}
+    poses = [road_pose(k * STREET_SPACING_M) for k in range(STREET_KEYFRAMES)]
+    local = [scan(T) for T in poses]
+    return {"demo": demo, "keyframes": [((p @ T[:3, :3].T) + T[:3, 3]).astype(np.float32) for p, T in zip(local, poses)],
+            "scan_last": local[-1], "T_last": poses[-1]}
 
 
 def colored_scene(n: int = COLORED_N, seed: int = COLORED_SEED) -> dict:
@@ -5386,6 +5685,444 @@ def phase_segmentation(torch, scan) -> dict:
         f"{SEG_SEED_POINT}; " + "; ".join(texts))
     return out
 
+
+# ---------------------------------------------------------------------------
+# Phase 36: the distributed layer, PAR_RANKS ranks on the card over gloo
+# ---------------------------------------------------------------------------
+
+
+def _lin_arrays(lin) -> dict:
+    """A Linearized as numpy (the inlier count as an int)."""
+    out = {k: getattr(lin, k).detach().cpu().numpy() for k in ("H_tt", "H_ss", "H_ts", "b_t", "b_s", "error")}
+    out["num_inliers"] = int(lin.num_inliers)
+    return out
+
+
+def _parallel_rank_body(rank: int, world: int, store: str, data: dict) -> dict:
+    """Phase 36 on one rank: the demo registration on the sharded map, the
+    map of every scan and its linearize, the factor axis. K3's plain version
+    raises if anything calls it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gtsam_points_tpu_torch.factors import PriorFactor, make_vgicp_factor_batch
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.ops.downsample import voxelgrid_sampling
+    from gtsam_points_tpu_torch.ops.voxelmap import build_voxelmap
+    from gtsam_points_tpu_torch.optim import FactorGraph, LMParams, optimize_lm
+    from gtsam_points_tpu_torch.parallel import (
+        build_sharded_voxelmap,
+        init_distributed,
+        linearize_vgicp_sharded,
+        make_mesh,
+        make_vgicp_sharded_factor,
+        place_sharded,
+        sharded_insert_frame,
+        sharded_num_voxels,
+        sharded_overlap,
+    )
+    from gtsam_points_tpu_torch.parallel import sharding
+    from gtsam_points_tpu_torch.parallel.distributed import optimize_lm_sharded, shard_factor_batch
+    from gtsam_points_tpu_torch.parallel.sharded_voxelmap import _linearize_local, _source_planar
+    from gtsam_points_tpu_torch.types.frame import make_frame, transform_frame
+
+    torch.set_num_threads(1)  # eight ranks share the host's cores
+    t_start = time.perf_counter()
+    dev = init_distributed(rank, world, f"file://{store}", "gloo", device="cuda:0")
+    out = {}
+
+    def stage(name: str) -> None:
+        if rank == 0:
+            log(f"[parallel] rank 0: {name} at {time.perf_counter() - t_start:.1f} s")
+
+    stage("joined the group")
+
+    def counted(fn):
+        """fn() timed, between barriers, with every kernel count at 0 before
+        it -> (result, ms, K3 launches, other kernels' launches, collectives,
+        bytes reduced)."""
+        dist.barrier()
+        _zero_counts(FL)
+        c0, b0 = sharding.collectives, sharding.bytes_reduced
+        res, ms = _host_median_ms(torch, fn, reps=1)
+        others = FL.unary_launches + FL.unary_batch_launches + FL.moments_launches + FL.dense_launches
+        return res, ms, FL.launches, others, sharding.collectives - c0, sharding.bytes_reduced - b0
+
+    try:
+        with mock.patch.object(FL, "linearize_fused_plain", side_effect=AssertionError("K3's plain version called")):
+            eye = torch.eye(4, device=dev)
+            # the distributed_mapping demo
+            demo = data["demo"]
+            target, source = (voxelgrid_sampling(make_frame(demo[k], capacity=PAR_SCAN_CAPACITY, device=dev),
+                                                 PAR_SAMPLE_LEAF, capacity=PAR_SAMPLE_CAPACITY)
+                              for k in ("target", "source"))
+            mesh, mesh_ms = _host_median_ms(torch, lambda: make_mesh(axis="shard", device=dev), reps=1)
+            out["setup"] = {"mesh_ms": mesh_ms, **{
+                f"first_all_reduce_{where}_ms": _host_median_ms(torch, lambda: sharding.all_reduce_sum(
+                    torch.zeros(122, device=where), mesh.group("shard")), reps=1)[1] for where in ("cpu", "cuda")}}
+            stage("the shard mesh made and its first all-reduces done")
+            svmap = place_sharded(build_sharded_voxelmap(target, PAR_LEAF, world, PAR_DEMO_SHARD_CAPACITY,
+                                                         device=dev), mesh)
+            graph = FactorGraph(num_poses=2)
+            graph.add(PriorFactor(prior=eye, weights=torch.full((6,), PAR_PRIOR_WEIGHT, device=dev), key=0))
+            graph.add(make_vgicp_sharded_factor(0, 1, svmap, source, mesh, min_voxel_points=PAR_DEMO_MIN_POINTS))
+            start = torch.from_numpy(np.stack([np.eye(4, dtype=np.float32), demo["start"]])).to(dev)
+            runs = []
+            for _ in range(PAR_REPEATS):
+                res, ms, k3, others, coll, nbytes = counted(
+                    lambda: optimize_lm(graph, start, LMParams(max_iterations=PAR_DEMO_ITERATIONS)))
+                runs.append({"poses": res.poses.cpu().numpy(), "iters": int(res.status.num_iterations), "ms": ms,
+                             "k3": k3, "others": others, "collectives": coll, "bytes": nbytes})
+            out["demo_runs"] = runs
+            stage("demo registrations done")
+            pose = torch.from_numpy(runs[0]["poses"][1]).to(dev)
+            for name, delta in (("start", start[1]), ("final", pose)):
+                out[f"demo_lin_{name}"] = _lin_arrays(linearize_vgicp_sharded(
+                    svmap, source, delta, mesh, min_voxel_points=PAR_DEMO_MIN_POINTS))
+            lin_ms = [counted(lambda: linearize_vgicp_sharded(svmap, source, pose, mesh,
+                                                              min_voxel_points=PAR_DEMO_MIN_POINTS))[1:4]
+                      for _ in range(PAR_LINEARIZE_CALLS)]
+            # where a linearize's time goes: the rank's probe and K3 alone, and
+            # one all-reduce of the payload's size on a CUDA and on a host tensor
+            pts_p, covs6 = _source_planar(source)
+            out["census"] = {
+                "local_ms": [counted(lambda: _linearize_local(svmap.local, pts_p, covs6, source.mask, pose,
+                                                              PAR_DEMO_MIN_POINTS))[1]
+                             for _ in range(PAR_LINEARIZE_CALLS)],
+                **{f"all_reduce_{where}_ms": [counted(lambda: sharding.all_reduce_sum(
+                    torch.zeros(122, device=where), mesh.group("shard")))[1] for _ in range(PAR_LINEARIZE_CALLS)]
+                   for where in ("cuda", "cpu")}}
+            moved = transform_frame(pose, source)
+            inserted, overflow = sharded_insert_frame(svmap, moved)
+            out["demo_map"] = {
+                "voxels_before": int(svmap.local.num_voxels), "voxels_after": int(inserted.local.num_voxels),
+                "total_after": int(sharded_num_voxels(inserted)), "overflow": int(overflow),
+                "overlap": float(sharded_overlap(inserted, source, pose)),
+                "overlap_moved": float(sharded_overlap(inserted, moved, eye)),
+                "linearize_ms": [x[0] for x in lin_ms], "linearize_k3": [x[1] for x in lin_ms],
+                "linearize_others": [x[2] for x in lin_ms]}
+            if rank == 0:
+                out["demo_frames"] = {k: {"points": f.points.cpu().numpy(), "mask": f.mask.cpu().numpy()}
+                                      for k, f in (("target", target), ("source", source), ("moved", moved))}
+
+            stage("demo linearizes and insert done")
+            # every scan at its true pose, 8 shards of PAR_MAP_SHARD_CAPACITY voxels
+            scans = data["keyframes"]
+            svm = place_sharded(build_sharded_voxelmap(make_frame(scans[0], device=dev), PAR_LEAF, world,
+                                                       PAR_MAP_SHARD_CAPACITY, device=dev), mesh)
+            overflow, insert_ms = 0, []
+            for s in scans[1:]:
+                frame = make_frame(s, device=dev)
+                (svm, ov), ms = _host_median_ms(torch, lambda: sharded_insert_frame(svm, frame), reps=1)
+                overflow += int(ov)
+                insert_ms.append(ms)
+            src = make_frame(data["scan_last"], device=dev)
+            T_last = torch.from_numpy(data["T_last"]).to(dev)
+            lin, ms, k3, others, coll, nbytes = counted(lambda: linearize_vgicp_sharded(svm, src, T_last, mesh))
+            lin_ms = [counted(lambda: linearize_vgicp_sharded(svm, src, T_last, mesh))[1:4]
+                      for _ in range(PAR_LINEARIZE_CALLS)]
+            out["map"] = {"voxels": int(svm.local.num_voxels), "total": int(sharded_num_voxels(svm)),
+                          "overflow": overflow, "insert_ms": insert_ms, "lin": _lin_arrays(lin),
+                          "k3": k3 + sum(x[1] for x in lin_ms), "others": others + sum(x[2] for x in lin_ms),
+                          "calls": 1 + len(lin_ms), "collectives": coll, "bytes": nbytes,
+                          "linearize_ms": [x[0] for x in lin_ms]}
+
+            stage("the map done")
+            # the factor axis
+            prob = data["batch"]
+            vmap = build_voxelmap(make_frame(prob["target"], device=dev), PAR_LEAF, capacity=PAR_BATCH_MAP_CAPACITY)
+            f = len(prob["sources"])
+            batch = make_vgicp_factor_batch([vmap] * f, [make_frame(s, device=dev) for s in prob["sources"]],
+                                            [-1] * f, list(range(f)), min_voxel_points=PAR_BATCH_MIN_POINTS)
+            mesh_f = make_mesh(axis="factor", device=dev)
+            graph = FactorGraph(num_poses=f)
+            graph.add(shard_factor_batch(batch, mesh_f, "factor"))
+            poses0 = torch.eye(4, device=dev).expand(f, 4, 4).contiguous()
+            res, ms, k3, others, coll, nbytes = counted(lambda: optimize_lm_sharded(
+                graph, poses0, mesh_f, LMParams(max_iterations=PAR_BATCH_ITERATIONS)))
+            out["batch"] = {"poses": res.poses.cpu().numpy(), "iters": int(res.status.num_iterations), "ms": ms,
+                            "k3": k3, "others": others, "collectives": coll, "bytes": nbytes,
+                            "local_factors": graph.factors[0].local.num_factors()}
+            stage("the factor axis done")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _parallel_rank(rank: int, world: int, store: str, data: dict, queue) -> None:
+    """A spawned rank: its results, or its traceback, go to `queue`; a
+    failure also ends the process with a nonzero code."""
+    import traceback
+
+    try:
+        result = _parallel_rank_body(rank, world, store, data)
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+    queue.put((rank, "ok", result))
+
+
+def _run_ranks(data: dict) -> list:
+    """PAR_RANKS spawned ranks of `_parallel_rank` on the card -> their
+    results by rank. Any rank that fails, dies or outlasts PAR_TIMEOUT_S
+    fails the phase; every process is stopped before this returns."""
+    import multiprocessing
+    import queue as queue_mod
+    import tempfile
+
+    from gtsam_points_tpu_torch import _build
+
+    ctx = multiprocessing.get_context("spawn")  # never fork a process that initialized CUDA
+    q = ctx.Queue()
+    results = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        procs = [ctx.Process(target=_parallel_rank, args=(r, PAR_RANKS, os.path.join(tmp, "store"), data, q))
+                 for r in range(PAR_RANKS)]
+        try:
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + PAR_TIMEOUT_S
+            while len(results) < PAR_RANKS:
+                try:
+                    rank, status, payload = q.get(timeout=5.0)
+                except queue_mod.Empty:
+                    dead = [(r, p.exitcode) for r, p in enumerate(procs) if r not in results and p.exitcode]
+                    if dead:
+                        raise RuntimeError(f"[parallel] ranks died without a result: {dead}")
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"[parallel] ranks still running after {PAR_TIMEOUT_S} s")
+                    continue
+                if status != "ok":
+                    raise RuntimeError(f"[parallel] rank {rank} failed:\n{payload}")
+                results[rank] = payload
+            for p in procs:
+                p.join(timeout=60)
+            bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+            if bad:
+                raise RuntimeError(f"[parallel] ranks exited with {bad}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+    return [results[r] for r in range(PAR_RANKS)]
+
+
+def _check_parallel_system(torch, label: str, lins: list, args, near_optimum: bool) -> tuple:
+    """Every rank's reduced system equal bit for bit to rank 0's, and rank
+    0's against the replicated map's K3 on K3's inputs `args`: H_tt, H_ss,
+    H_ts and the error within PAR_TOL x max|ref|; b_t and b_s too, or, at a
+    pose near the optimum, within PAR_TOL of their summand scale (there b
+    is a residue of large terms that cancel, and a float32 sum in another
+    order is bounded relative to its terms, not to |b|); the inlier counts
+    equal. -> (the largest error over max|ref|, over the summand scale)."""
+    from gtsam_points_tpu_torch.factors.linearized import Linearized
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+
+    fields = ("H_tt", "H_ss", "H_ts", "b_t", "b_s", "error")
+    for r, lin in enumerate(lins[1:], 1):
+        if any(lin[k].tobytes() != lins[0][k].tobytes() for k in fields) or lin["num_inliers"] != lins[0]["num_inliers"]:
+            raise AssertionError(f"[parallel] {label}: rank {r}'s reduced system differs from rank 0's")
+    ref = FL.linearize_fused(*args)
+    got = Linearized(**{k: torch.from_numpy(lins[0][k]).to(ref.H_tt.device) for k in fields},
+                     num_inliers=torch.tensor(lins[0]["num_inliers"]))
+    errs = _k3_field_errors(torch, got, ref, _k3_summand_scale(torch, args))
+    held = {k: e[1] if near_optimum and k in ("b_t", "b_s") else e[0] for k, e in errs.items()}
+    if max(held.values()) > PAR_TOL:
+        raise AssertionError(f"[parallel] {label}: against the replicated map's K3 " + ", ".join(
+            f"{k} {e[0]:.3e} x max|ref|, {e[1]:.3e} of its summand scale" for k, e in errs.items()))
+    if lins[0]["num_inliers"] != int(ref.num_inliers):
+        raise AssertionError(f"[parallel] {label}: {lins[0]['num_inliers']} inliers, the replicated map "
+                             f"{int(ref.num_inliers)}")
+    return max(e[0] for e in errs.values()), max(e[1] for e in errs.values())
+
+
+def phase_parallel(torch) -> dict:
+    """Phase 36 (see the module docstring)."""
+    import numpy as np
+
+    from gtsam_points_tpu_torch import interop
+    from gtsam_points_tpu_torch.ops import fused_linearize as FL
+    from gtsam_points_tpu_torch.ops.voxelmap import build_voxelmap, insert_frame
+    from gtsam_points_tpu_torch.parallel.sharded_voxelmap import _local_corr, _source_planar
+    from gtsam_points_tpu_torch.parallel import build_sharded_voxelmap, sharded_insert_frame, sharded_overlap
+    from gtsam_points_tpu_torch.types.frame import make_frame
+    from gtsam_points_tpu_torch.utils import se3
+
+    t0 = time.perf_counter()
+    data = {**parallel_street(), "batch": parallel_batch_problem()}
+    t_data = time.perf_counter() - t0
+    world_scans = data["keyframes"]
+    n_map = len(world_scans)
+    res = _run_ranks(data)
+    t_ranks = time.perf_counter() - t0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+    # every rank's poses, payloads and counts equal bit for bit to rank 0's
+    for r, x in enumerate(res):
+        for i, run in enumerate(x["demo_runs"]):
+            if run["poses"].tobytes() != res[0]["demo_runs"][0]["poses"].tobytes():
+                raise AssertionError(f"[parallel] rank {r} run {i}: demo poses differ from rank 0's first run")
+        if x["batch"]["poses"].tobytes() != res[0]["batch"]["poses"].tobytes():
+            raise AssertionError(f"[parallel] rank {r}: factor-axis poses differ from rank 0's")
+        for k in ("total_after", "overflow", "overlap", "overlap_moved"):
+            if x["demo_map"][k] != res[0]["demo_map"][k]:
+                raise AssertionError(f"[parallel] rank {r}: demo map {k} differs from rank 0's")
+        if (x["map"]["total"], x["map"]["overflow"]) != (res[0]["map"]["total"], res[0]["map"]["overflow"]):
+            raise AssertionError(f"[parallel] rank {r}: the map's total or overflow differs from rank 0's")
+
+    # K3 launched once a linearization on every rank, nothing else launched
+    for r, x in enumerate(res):
+        for run in x["demo_runs"]:
+            if run["k3"] != run["iters"] or run["others"]:
+                raise AssertionError(f"[parallel] rank {r}: demo K3 {run['k3']} for {run['iters']} LM iterations, "
+                                     f"other kernels {run['others']}")
+        b = x["batch"]
+        if b["k3"] != b["iters"] * b["local_factors"] or b["others"]:
+            raise AssertionError(f"[parallel] rank {r}: factor axis K3 {b['k3']} for {b['iters']} iterations x "
+                                 f"{b['local_factors']} factors")
+        m = x["map"]
+        if m["k3"] != m["calls"] or m["others"] or x["demo_map"]["linearize_k3"] != [1] * PAR_LINEARIZE_CALLS:
+            raise AssertionError(f"[parallel] rank {r}: a sharded linearize launched K3 other than once")
+
+    # each sharded linearize against the replicated map's K3 on the card
+    frames = res[0]["demo_frames"]
+    target = interop.frame_from_numpy(frames["target"], device="cuda")
+    source = interop.frame_from_numpy(frames["source"], device="cuda")
+    pts_p, _ = _source_planar(source)
+
+    def k3_args(vmap, src_p, mask, delta, mvp):
+        """The replicated map's K3 inputs for the same source and pose."""
+        found, mu, W6, _ = _local_corr(vmap, src_p, None, mask, delta, mvp)
+        return src_p, mu.contiguous(), W6.contiguous(), found, delta.contiguous()
+
+    rep = build_voxelmap(target, PAR_LEAF, capacity=PAR_RANKS * PAR_DEMO_SHARD_CAPACITY)
+    start = torch.from_numpy(data["demo"]["start"]).cuda()
+    pose = torch.from_numpy(res[0]["demo_runs"][0]["poses"][1]).cuda()
+    errs = {name: _check_parallel_system(torch, f"demo linearize at the {name} pose",
+                                         [x[f"demo_lin_{name}"] for x in res],
+                                         k3_args(rep, pts_p, source.mask, delta, PAR_DEMO_MIN_POINTS), near)
+            for name, delta, near in (("start", start, False), ("final", pose, True))}
+    rep = build_voxelmap(make_frame(world_scans[0], device="cuda"), PAR_LEAF,
+                         capacity=PAR_RANKS * PAR_MAP_SHARD_CAPACITY)
+    for s in world_scans[1:]:
+        rep = insert_frame(rep, make_frame(s, device="cuda"))
+    last = make_frame(data["scan_last"], device="cuda")
+    errs["map"] = _check_parallel_system(
+        torch, "the map's linearize at the true pose", [x["map"]["lin"] for x in res],
+        k3_args(rep, last.points.T.contiguous(), last.mask, torch.from_numpy(data["T_last"]).cuda(), 5.0), False)
+    if int(rep.num_voxels) != res[0]["map"]["total"]:
+        raise AssertionError(f"[parallel] the sharded map holds {res[0]['map']['total']} voxels, the replicated "
+                             f"{int(rep.num_voxels)}")
+
+    # overflow and voxel counts against the CPU port's stacked map, from the same points
+    cpu_target = interop.frame_from_numpy(frames["target"], device="cpu")
+    cpu_moved = interop.frame_from_numpy(frames["moved"], device="cpu")
+    st = build_sharded_voxelmap(cpu_target, PAR_LEAF, PAR_RANKS, PAR_DEMO_SHARD_CAPACITY, device="cpu")
+    before = st.num_voxels.tolist()
+    st, ov = sharded_insert_frame(st, cpu_moved)
+    demo_cpu = {"before": before, "after": st.num_voxels.tolist(), "overflow": int(ov),
+                "overlap": float(sharded_overlap(st, cpu_moved, torch.eye(4)))}
+    got = {"before": [x["demo_map"]["voxels_before"] for x in res], "after": [x["demo_map"]["voxels_after"] for x in res],
+           "overflow": res[0]["demo_map"]["overflow"], "overlap": res[0]["demo_map"]["overlap_moved"]}
+    if got != demo_cpu:
+        raise AssertionError(f"[parallel] the demo map on the ranks {got}, the CPU port's {demo_cpu}")
+    st = build_sharded_voxelmap(make_frame(world_scans[0], device="cpu"), PAR_LEAF, PAR_RANKS,
+                                PAR_MAP_SHARD_CAPACITY, device="cpu")
+    overflow = 0
+    for s in world_scans[1:]:
+        st, ov = sharded_insert_frame(st, make_frame(s, device="cpu"))
+        overflow += int(ov)
+    map_cpu = {"voxels": st.num_voxels.tolist(), "overflow": overflow}
+    got = {"voxels": [x["map"]["voxels"] for x in res], "overflow": res[0]["map"]["overflow"]}
+    if got != map_cpu:
+        raise AssertionError(f"[parallel] the map on the ranks {got}, the CPU port's {map_cpu}")
+
+    # the poses against the JAX package's
+    demo_pose = res[0]["demo_runs"][0]["poses"][1]
+    bound_m = max(PAR_BOUND_M, PAR_SHIFT_MARGIN * PAR_DEMO_ORDER_SHIFT[0])
+    bound_rad = max(PAR_BOUND_RAD, PAR_SHIFT_MARGIN * PAR_DEMO_ORDER_SHIFT[1])
+    rot, trans = se3.pose_error(_rows_to_poses(torch, [PAR_DEMO_JAX_POSE])[0].cpu(), torch.from_numpy(demo_pose))
+    truth_rot, truth_trans = se3.pose_error(torch.from_numpy(data["demo"]["delta"]), torch.from_numpy(demo_pose))
+    if float(trans) > bound_m or float(rot) > bound_rad:
+        raise AssertionError(f"[parallel] demo pose {float(trans):.3e} m {float(rot):.3e} rad from JAX's "
+                             f"(bound {bound_m:.3e} m {bound_rad:.3e} rad)")
+    b_poses = torch.from_numpy(res[0]["batch"]["poses"])
+    b_rot, b_trans = se3.pose_error(_rows_to_poses(torch, PAR_BATCH_JAX_POSES).cpu(), b_poses)
+    b_bound_m = np.maximum(PAR_BOUND_M, PAR_SHIFT_MARGIN * np.asarray(PAR_BATCH_ORDER_SHIFT_M))
+    b_bound_rad = np.maximum(PAR_BOUND_RAD, PAR_SHIFT_MARGIN * np.asarray(PAR_BATCH_ORDER_SHIFT_RAD))
+    if np.any(b_trans.numpy() > b_bound_m) or np.any(b_rot.numpy() > b_bound_rad):
+        raise AssertionError(f"[parallel] factor-axis poses {b_trans.tolist()} m {b_rot.tolist()} rad from JAX's")
+    b_truth = se3.pose_error(torch.from_numpy(np.stack(data["batch"]["T"])), b_poses)
+
+    # what the phase prints
+    reg_ms = [run["ms"] for x in res for run in x["demo_runs"][1:]]
+    run0 = res[0]["demo_runs"][0]
+    batch0 = res[0]["batch"]
+    log(f"[parallel] {card}: {PAR_RANKS} ranks on cuda:0 over gloo, spawned and run in {t_ranks:.1f} s")
+    log(f"[parallel] the drive's scans made on the host in {t_data:.1f} s")
+    log(f"[parallel] demo (distributed_mapping on the drive's scans 0 and 1, {len(data['demo']['target'])} and "
+        f"{len(data['demo']['source'])} points, {int(target.num_valid())} and "
+        f"{int(source.num_valid())} points after voxelgrid {PAR_SAMPLE_LEAF}): {run0['iters']} LM iterations "
+        f"(JAX {PAR_DEMO_JAX_ITERATIONS}), pose 1 {float(trans):.3e} m {float(rot):.3e} rad from JAX's (bound "
+        f"{bound_m:.3e} m {bound_rad:.3e} rad), {float(truth_trans):.4f} m {float(truth_rot):.5f} rad from the "
+        f"truth; every rank and repeat equal bit for bit")
+    first_ms = [x["demo_runs"][0]["ms"] for x in res]
+    log(f"[parallel] demo registration ms (host clock, synchronized, {PAR_RANKS} ranks x {PAR_REPEATS - 1} runs after "
+        f"the first): median {statistics.median(reg_ms):.3f}, min {min(reg_ms):.3f}, max {max(reg_ms):.3f}; the "
+        f"first run of each rank {min(first_ms):.3f}-{max(first_ms):.3f}; "
+        f"{run0['iters'] and run0['collectives'] / run0['iters']:.3f} collectives and "
+        f"{run0['iters'] and run0['bytes'] / run0['iters']:.1f} bytes reduced an LM iteration "
+        f"(collective_bytes_per_linearize 488); K3 {run0['k3']} launches a rank a run")
+    setup = {k: (min(x["setup"][k] for x in res), max(x["setup"][k] for x in res)) for k in res[0]["setup"]}
+    log("[parallel] set-up ms over the ranks (min-max): making the shard mesh (its process groups) "
+        f"{setup['mesh_ms'][0]:.1f}-{setup['mesh_ms'][1]:.1f}; the group's first all-reduce on a host tensor "
+        f"{setup['first_all_reduce_cpu_ms'][0]:.1f}-{setup['first_all_reduce_cpu_ms'][1]:.1f}, then its first on a "
+        f"CUDA tensor {setup['first_all_reduce_cuda_ms'][0]:.1f}-{setup['first_all_reduce_cuda_ms'][1]:.1f}")
+    census = {k: statistics.median([v for x in res for v in x["census"][k]]) for k in res[0]["census"]}
+    log(f"[parallel] where a demo linearize goes (median ms, {PAR_RANKS} x {PAR_LINEARIZE_CALLS} calls, host clock, "
+        f"synchronized): the rank's probe + K3 alone {census['local_ms']:.3f}; one all-reduce of 122 floats (488 "
+        f"bytes) over gloo on a CUDA tensor {census['all_reduce_cuda_ms']:.3f}, on a host tensor "
+        f"{census['all_reduce_cpu_ms']:.3f}")
+    dm = res[0]["demo_map"]
+    lin_ms = [v for x in res for v in x["demo_map"]["linearize_ms"]]
+    log(f"[parallel] demo linearize ms (sharded probe + K3 + one all-reduce, {PAR_RANKS} x {PAR_LINEARIZE_CALLS} "
+        f"calls): median {statistics.median(lin_ms):.3f}, min {min(lin_ms):.3f}, max {max(lin_ms):.3f}; against "
+        f"the replicated map's K3 at the start {errs['start'][0]:.3e} x max|ref| ({errs['start'][1]:.3e} of the "
+        f"summand scale), at the final pose {errs['final'][0]:.3e} x max|ref| ({errs['final'][1]:.3e})")
+    log(f"[parallel] demo map: voxels a rank {[x['demo_map']['voxels_before'] for x in res]} -> after inserting "
+        f"scan 1 {[x['demo_map']['voxels_after'] for x in res]} (total {dm['total_after']}, overflow {dm['overflow']}; the CPU port's "
+        f"equal); overlap of scan 1 {dm['overlap']:.6f}")
+    m0 = res[0]["map"]
+    ins_ms = [v for x in res for v in x["map"]["insert_ms"]]
+    lin_ms = [v for x in res for v in x["map"]["linearize_ms"]]
+    log(f"[parallel] map of the drive's {n_map} keyframes {STREET_SPACING_M} m apart "
+        f"({sum(len(w) for w in world_scans)} points) in {PAR_RANKS} shards of {PAR_MAP_SHARD_CAPACITY}: voxels a "
+        f"rank {[x['map']['voxels'] for x in res]}, filled {min(x['map']['voxels'] for x in res) / PAR_MAP_SHARD_CAPACITY:.3f}"
+        f"-{max(x['map']['voxels'] for x in res) / PAR_MAP_SHARD_CAPACITY:.3f} (total {m0['total']}, the "
+        f"replicated map {int(rep.num_voxels)}, overflow {m0['overflow']}; the CPU port's equal); insert ms median "
+        f"{statistics.median(ins_ms):.3f}; linearize of keyframe {n_map - 1} at its true pose ms median "
+        f"{statistics.median(lin_ms):.3f} (min {min(lin_ms):.3f}, max {max(lin_ms):.3f}), "
+        f"{errs['map'][0]:.3e} x max|ref| ({errs['map'][1]:.3e} of the summand scale) from the replicated map's, "
+        f"{m0['collectives']} collective of "
+        f"{m0['bytes']} bytes")
+    b_ms = [x["batch"]["ms"] for x in res]
+    log(f"[parallel] factor axis ({PAR_BATCH_FACTORS} VGICP factors of {PAR_BATCH_N} points, "
+        f"{batch0['local_factors']} a rank): {batch0['iters']} LM iterations (JAX {PAR_BATCH_JAX_ITERATIONS}), "
+        f"poses at most {float(b_trans.max()):.3e} m {float(b_rot.max()):.3e} rad from JAX's, "
+        f"{float(b_truth[1].max()):.4f} m {float(b_truth[0].max()):.5f} rad from the truth; ms median "
+        f"{statistics.median(b_ms):.3f} (max {max(b_ms):.3f}); {batch0['collectives'] / batch0['iters']:.3f} "
+        f"collectives and {batch0['bytes'] / batch0['iters']:.1f} bytes reduced an LM iteration; K3 "
+        f"{batch0['k3']} launches a rank; every rank equal bit for bit")
+    log(f"[parallel] phase 36: {time.perf_counter() - t0:.1f} s")
+    return {"parallel_demo": sum(x["demo_runs"][0]["k3"] for x in res),
+            "parallel_demo_linearize": sum(sum(x["demo_map"]["linearize_k3"]) for x in res),
+            "parallel_map_linearize": sum(x["map"]["k3"] for x in res),
+            "parallel_factor_axis": sum(x["batch"]["k3"] for x in res)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -5468,9 +6205,11 @@ def main() -> int:
     t_slice = time.perf_counter()
     colored = phase_colored(torch)
     phase_imu_sim3(torch)
-    phase_maps(torch, scans, k3.pop("T_true"), k3.pop("world_poses"))
+    T_true = k3.pop("T_true")
+    phase_maps(torch, scans, T_true, k3.pop("world_poses"))
     phase_segmentation(torch, scans[0])
     log(f"[slice 14] phases 32-35: {time.perf_counter() - t_slice:.1f} s")
+    parallel = phase_parallel(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -5484,7 +6223,8 @@ def main() -> int:
                              **graph, "isam2": isam2["launches"], "fixed_lag": fixed_lag["launches"],
                              "global_refine": global_reg["launches"],
                              "colored_demo_gicp": colored["launches"]["gicp"],
-                             "colored_demo_consistency_gicp": colored["launches"]["consistency_gicp"]},
+                             "colored_demo_consistency_gicp": colored["launches"]["consistency_gicp"],
+                             **parallel},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],

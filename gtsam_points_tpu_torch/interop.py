@@ -1,6 +1,7 @@
 """Carry state across from the JAX package as numpy arrays.
 
-The system has no weights: its state is the voxel map, the frames, a
+The system has no weights: its state is the voxel map (whole, or sharded
+with a leading [S] axis), the frames, a
 scan's source clusters, a frame's hash grid, a pose graph's edges, a VGICP
 factor set and an incremental optimizer's marginal priors, IMU samples, a Sim(3), an
 occupancy grid and an incremental covariance map. These functions
@@ -123,6 +124,25 @@ def frame_to_numpy(frame) -> dict:
 def voxelmap_to_numpy(vmap: GaussianVoxelMap) -> dict:
     """The map's fields as numpy arrays. Takes the port's map or the JAX one."""
     return {k: _numpy(getattr(vmap, k)) for k in FIELD_DTYPES}
+
+
+def sharded_voxelmap_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = None) -> GaussianVoxelMap:
+    """`arrays`: the seven fields of a sharded map (a JAX
+    `build_sharded_voxelmap`'s), each with a leading [S] axis -> the port's
+    stacked map. Raises unless every field has the same leading axis."""
+    s = np.shape(arrays["leaf"])
+    if len(s) != 1 or any(np.shape(arrays[k])[:1] != s for k in FIELD_DTYPES):
+        raise ValueError("a sharded map has a leading [S] axis on every field")
+    return voxelmap_from_numpy(arrays, device)
+
+
+def sharded_voxelmap_to_numpy(svmap) -> dict:
+    """A stacked sharded map's fields as numpy arrays, [S, ...] each. Takes
+    the port's map or the JAX one."""
+    out = voxelmap_to_numpy(svmap)
+    if out["leaf"].ndim != 1:
+        raise ValueError("not a sharded map: its leaf has no leading [S] axis")
+    return out
 
 
 def clusters_from_numpy(arrays: Mapping[str, np.ndarray], device: DeviceLike = None) -> SourceClusters:

@@ -24,7 +24,9 @@ from gtsam_points_tpu_torch.factors import (
 )
 from gtsam_points_tpu_torch.ops.incremental_covariance import empty_incremental_covariance_map
 from gtsam_points_tpu_torch.ops.voxelmap import empty_voxelmap, load_voxelmap, save_voxelmap
-from gtsam_points_tpu_torch.optim import FixedLagSmoother, ISAM2Ext
+from gtsam_points_tpu_torch.optim import FactorGraph, FixedLagSmoother, ISAM2Ext
+from gtsam_points_tpu_torch.parallel import Mesh, build_sharded_voxelmap, init_distributed, make_mesh, shard_frame
+from gtsam_points_tpu_torch.parallel.distributed import optimize_lm_sharded
 from gtsam_points_tpu_torch.pipelines.odometry import (
     OdometryParams,
     init_odometry,
@@ -145,6 +147,32 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RunningStatistics.empty((2,))
     assert RunningStatistics.empty((2,), device="cpu").total.device.type == "cpu"
+    # the distributed layer: the sharded map, the rank's device, the mesh and the sharded LM
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_sharded_voxelmap(frame, 1.0, 2)
+    assert build_sharded_voxelmap(frame, 1.0, 2, device="cpu").keys.shape == (2, frame.capacity)
+    with pytest.raises(ValueError):
+        build_sharded_voxelmap(frame, 1.0, 2, device="meta")
+    store = f"file://{tmp_path / 'store'}"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_distributed(0, 1, store, "gloo")
+    assert init_distributed(0, 1, store, "gloo", device="cpu").type == "cpu"
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_mesh()
+        mesh = make_mesh(axis="factor", device="cpu")
+        assert mesh.device.type == "cpu" and mesh.size("factor") == 1
+        with pytest.raises(ValueError):
+            shard_frame(frame, make_mesh(axis="factor", device="meta"), axis="factor")
+        graph = FactorGraph(num_poses=1)
+        graph.add(PriorFactor(prior=torch.eye(4), weights=torch.ones(6), key=0))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            optimize_lm_sharded(graph, torch.eye(4)[None], Mesh([0], ("factor",), "cuda"))
+        assert optimize_lm_sharded(graph, torch.eye(4)[None], mesh).poses.device.type == "cpu"
+        with pytest.raises(ValueError):
+            optimize_lm_sharded(graph, torch.eye(4, device="meta")[None], mesh)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_float32_pins():

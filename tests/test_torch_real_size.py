@@ -98,6 +98,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:  # run as a script from the root of a checkout
     sys.path.insert(0, ROOT)
 
+if __name__ == "__main__":  # --parallel's meshes: tests/conftest.py's 8 virtual CPU devices
+    _flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in _flags:
+        os.environ["XLA_FLAGS"] = (_flags + " --xla_force_host_platform_device_count=8").strip()
+
 import jax  # noqa: E402
 
 from gtsam_points_tpu.factors import PriorFactor as JPrior  # noqa: E402
@@ -1589,6 +1594,75 @@ def test_real_size_first_steps_match_jax():
     assert r["map_keys_equal"] and r["voxels_jax"] == r["voxels_torch"] > 0
 
 
+def _parallel_demo_jax(d: dict, perm_seed=None) -> tuple:
+    """Phase 36's distributed_mapping demo on the JAX package, 8 shards on
+    8 devices, from the drive's demo scans `d` (chip_smoke.parallel_street);
+    with `perm_seed`, both scans' points in another order.
+    -> (pose 1 [4, 4], LM iterations)."""
+    from jax.sharding import Mesh as JMesh
+
+    from gtsam_points_tpu import parallel as jpar
+
+    tgt, src = d["target"], d["source"]
+    if perm_seed is not None:
+        tgt, src = (a[np.random.RandomState(perm_seed + i).permutation(len(a))] for i, a in enumerate((tgt, src)))
+    sample = jax.jit(lambda f: jvoxelgrid(f, chip_smoke.PAR_SAMPLE_LEAF, capacity=chip_smoke.PAR_SAMPLE_CAPACITY))
+    target, source = (sample(jmake(a, capacity=chip_smoke.PAR_SCAN_CAPACITY)) for a in (tgt, src))
+    mesh = JMesh(np.asarray(jax.devices()[:chip_smoke.PAR_RANKS]), ("shard",))
+    svmap = jpar.place_sharded(jpar.build_sharded_voxelmap(target, chip_smoke.PAR_LEAF, chip_smoke.PAR_RANKS,
+                                                           chip_smoke.PAR_DEMO_SHARD_CAPACITY), mesh)
+    g = JGraph(num_poses=2)
+    g.add(JPrior(prior=jax.numpy.eye(4), weights=jax.numpy.full((6,), chip_smoke.PAR_PRIOR_WEIGHT), key=0))
+    g.add(jpar.make_vgicp_sharded_factor(0, 1, svmap, source, mesh, min_voxel_points=chip_smoke.PAR_DEMO_MIN_POINTS))
+    start = np.stack([np.eye(4, dtype=np.float32), d["start"]])
+    res = jax.jit(lambda p: jlm(g, p, JLMParams(max_iterations=chip_smoke.PAR_DEMO_ITERATIONS)))(start)
+    return np.asarray(res.poses[1]), int(res.status.num_iterations)
+
+
+def _parallel_batch_jax(perm_seed=None) -> tuple:
+    """Phase 36's factor axis on the JAX package: optimize_lm_sharded of the
+    8-factor batch over 8 devices; with `perm_seed`, every cloud's points in
+    another order. -> (poses [8, 4, 4], LM iterations)."""
+    from gtsam_points_tpu.parallel import make_mesh as jmesh
+    from gtsam_points_tpu.parallel.distributed import optimize_lm_sharded, shard_factor_batch
+
+    prob = chip_smoke.parallel_batch_problem()
+    clouds = [prob["target"], *prob["sources"]]
+    if perm_seed is not None:
+        clouds = [a[np.random.RandomState(perm_seed + i).permutation(len(a))] for i, a in enumerate(clouds)]
+    f = len(prob["sources"])
+    vmap = jbuild(jmake(clouds[0]), leaf=chip_smoke.PAR_LEAF, capacity=chip_smoke.PAR_BATCH_MAP_CAPACITY)
+    batch = jbatch([vmap] * f, [jmake(c) for c in clouds[1:]], [-1] * f, list(range(f)),
+                   min_voxel_points=chip_smoke.PAR_BATCH_MIN_POINTS)
+    mesh = jmesh(chip_smoke.PAR_RANKS, axis="factor")
+    g = JGraph(num_poses=f)
+    g.add(shard_factor_batch(batch, mesh, "factor"))
+    res = optimize_lm_sharded(g, jax.numpy.tile(jax.numpy.eye(4)[None], (f, 1, 1)), mesh,
+                              JLMParams(max_iterations=chip_smoke.PAR_BATCH_ITERATIONS))
+    return np.asarray(res.poses), int(res.status.num_iterations)
+
+
+def compare_parallel(n_orders: int) -> dict:
+    """The JAX package's poses of phase 36's demo registration and factor
+    axis, and with `n_orders` the largest shift of each pose over that many
+    other point orders."""
+    d = chip_smoke.parallel_street()["demo"]
+    demo, demo_iters = _parallel_demo_jax(d)
+    batch, batch_iters = _parallel_batch_jax()
+    r = {"demo": demo, "demo_iters": demo_iters, "batch": batch, "batch_iters": batch_iters,
+         "demo_truth": _max_gap(d["delta"], demo),
+         "batch_truth": _max_gap(np.stack(chip_smoke.parallel_batch_problem()["T"]), batch),
+         "demo_shift": [0.0, 0.0], "batch_shift_m": [0.0] * len(batch), "batch_shift_rad": [0.0] * len(batch)}
+    for k in range(n_orders):
+        p, _ = _parallel_demo_jax(d, perm_seed=100 * (k + 1))
+        r["demo_shift"] = [max(a, b) for a, b in zip(r["demo_shift"], _max_gap(demo, p))]
+        q, _ = _parallel_batch_jax(perm_seed=100 * (k + 1))
+        rot, trans = tse3.pose_error(torch.from_numpy(batch), torch.from_numpy(q))
+        r["batch_shift_m"] = [max(a, float(b)) for a, b in zip(r["batch_shift_m"], trans)]
+        r["batch_shift_rad"] = [max(a, float(b)) for a, b in zip(r["batch_shift_rad"], rot)]
+    return r
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=24, help="odometry steps (0: no odometry run)")
@@ -1656,6 +1730,11 @@ def main() -> int:
     parser.add_argument("--sim3", action="store_true", help="phase 33's Sim(3) alignment, both packages")
     parser.add_argument("--segmentation", action="store_true",
                         help="phase 35's region growing and min-cut on phase 4's scan 0, both packages")
+    parser.add_argument("--parallel", action="store_true",
+                        help="phase 36's demo registration on the 8-shard map and its factor-axis LM, the JAX "
+                             "package on 8 virtual CPU devices")
+    parser.add_argument("--parallel-orders", type=int, default=0,
+                        help="with --parallel: the JAX package again with the points in this many other orders")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -1848,6 +1927,17 @@ def main() -> int:
         print(f"segmentation sizes: JAX {r['jax']} port {r['torch']}", flush=True)
         print(f"SEG_JAX = {r['jax']!r}", flush=True)
         report.append(r)
+    if args.parallel:
+        r = compare_parallel(args.parallel_orders)
+        print(f"parallel demo: JAX {r['demo_iters']} iterations, against the truth {r['demo_truth']}; factor axis: "
+              f"{r['batch_iters']} iterations, against the truth {r['batch_truth']}", flush=True)
+        print(f"PAR_DEMO_JAX_POSE = {_rows(r['demo'])}\nPAR_DEMO_JAX_ITERATIONS = {r['demo_iters']}\n"
+              f"PAR_DEMO_ORDER_SHIFT = [{r['demo_shift'][0]:.3e}, {r['demo_shift'][1]:.3e}]\n"
+              f"PAR_BATCH_JAX_POSES = {_rows(r['batch'])}\nPAR_BATCH_JAX_ITERATIONS = {r['batch_iters']}\n"
+              "PAR_BATCH_ORDER_SHIFT_M = [" + ", ".join(f"{x:.3e}" for x in r["batch_shift_m"]) + "]\n"
+              "PAR_BATCH_ORDER_SHIFT_RAD = [" + ", ".join(f"{x:.3e}" for x in r["batch_shift_rad"]) + "]",
+              flush=True)
+        report.append({k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in r.items()})
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
         print(odometry_order_summary(r), flush=True)
