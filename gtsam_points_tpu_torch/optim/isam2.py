@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from gtsam_points_tpu_torch.optim.incremental import MarginalPriorFactor, margin
 from gtsam_points_tpu_torch.optim.lm import LMParams, LMResult, optimize_lm
 from gtsam_points_tpu_torch.optim.sparse import PoseGraphEdges, optimize_pose_graph
 from gtsam_points_tpu_torch.utils import se3
+from gtsam_points_tpu_torch.utils.memory import children, is_node, tensors
 
 
 class ISAM2ResultExt(NamedTuple):
@@ -66,18 +67,6 @@ class ISAM2ResultExt(NamedTuple):
         )
 
 
-def _children(obj) -> Iterator[Tuple[str, object]]:
-    """(name, value) of a dataclass's fields or a NamedTuple's."""
-    if dataclasses.is_dataclass(obj):
-        return ((f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj))
-    return zip(obj._fields, obj)
-
-
-def _is_node(obj) -> bool:
-    return (dataclasses.is_dataclass(obj) and not isinstance(obj, type)) or (
-        isinstance(obj, tuple) and hasattr(obj, "_fields"))
-
-
 def structure_key(obj):
     """The reference's (treedef, leaf avals) of a factor, a tuple of
     factors or a field: a tensor by shape and dtype, a frame, voxel map or
@@ -87,23 +76,11 @@ def structure_key(obj):
     and the rest its meta fields."""
     if isinstance(obj, torch.Tensor):
         return ("tensor", tuple(obj.shape), str(obj.dtype))
-    if _is_node(obj):
-        return (type(obj).__name__,) + tuple((name, structure_key(v)) for name, v in _children(obj))
+    if is_node(obj):
+        return (type(obj).__name__,) + tuple((name, structure_key(v)) for name, v in children(obj))
     if isinstance(obj, (tuple, list)):
         return tuple(structure_key(v) for v in obj)
     return obj
-
-
-def factor_tensors(obj) -> Iterator[torch.Tensor]:
-    """Every tensor a factor holds, nested fields included."""
-    if isinstance(obj, torch.Tensor):
-        yield obj
-    elif _is_node(obj):
-        for _, v in _children(obj):
-            yield from factor_tensors(v)
-    elif isinstance(obj, (tuple, list)):
-        for v in obj:
-            yield from factor_tensors(v)
 
 
 def _host(x) -> np.ndarray:
@@ -186,7 +163,7 @@ class ISAM2Ext:
     def update(self, new_factors: List = (), new_values: Optional[dict] = None) -> ISAM2ResultExt:
         t0 = time.perf_counter()
         for f in new_factors:
-            check_on(self.device, *factor_tensors(f))
+            check_on(self.device, *tensors(f))
         if new_values:
             for key in sorted(new_values):
                 self.estimates[key] = _host(new_values[key])

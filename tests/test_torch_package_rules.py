@@ -40,6 +40,9 @@ from gtsam_points_tpu_torch.registration import (
     estimate_pose_ransac,
 )
 from gtsam_points_tpu_torch.types.frame import make_frame
+from gtsam_points_tpu_torch.utils import profiling
+from gtsam_points_tpu_torch.utils.io import load_frame_npz, save_frame_npz
+from gtsam_points_tpu_torch.utils.offload import OffloadPool
 from gtsam_points_tpu_torch.utils.stats import RunningStatistics
 
 torch.set_num_threads(1)
@@ -66,7 +69,8 @@ def test_package_imports_without_jax():
 
 def test_no_source_names_jax_or_the_jax_package():
     banned = re.compile(r"^\s*(import jax|from jax)|gtsam_points_tpu\.", re.M)
-    sources = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
+    sources = (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
+               + sorted(PKG.rglob("*.cpp")))
     assert len(sources) >= 20
     for path in sources:
         assert not banned.search(path.read_text()), path
@@ -173,6 +177,62 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
             optimize_lm_sharded(graph, torch.eye(4, device="meta")[None], mesh)
     finally:
         torch.distributed.destroy_process_group()
+    # the frame's file, the offload pool and the device trace
+    path = str(tmp_path / "frame.npz")
+    save_frame_npz(path, frame)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_frame_npz(path)
+    assert load_frame_npz(path, device="cpu").points.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        OffloadPool(1024)
+    assert OffloadPool(1024, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with profiling.trace(str(tmp_path / "trace")):
+            pass
+    with profiling.trace(str(tmp_path / "trace"), device="cpu"):
+        torch.ones(2).sum()
+    assert (tmp_path / "trace" / "trace.json").exists()
+
+
+def test_native_loads_only_its_own_library():
+    """The port's host library is built from its own source into build/native/;
+    nothing under gtsam_points_tpu/ or native/ is read or mapped."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['gtsam_points_tpu'] = None\n"
+        "from gtsam_points_tpu_torch import native\n"
+        "assert native.available()\n"
+        "print(native.SOURCE)\n"
+        "print(native.library_path())\n"
+        "print(open('/proc/self/maps').read())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    source, lib, maps = out.stdout.split("\n", 2)
+    assert pathlib.Path(source).parent == PKG / "native"
+    assert pathlib.Path(lib).parent == REPO / "build" / "native"
+    assert lib in maps
+    for banned in (REPO / "gtsam_points_tpu", REPO / "native"):
+        assert str(banned) + "/" not in maps
+    text = (PKG / "native" / "__init__.py").read_text()
+    assert "gtsam_points_tpu/" not in text.replace("gtsam_points_tpu_torch/", "")
+
+
+def test_native_raises_without_a_compiler(monkeypatch, tmp_path):
+    """No fallback: with nothing built and no g++ on PATH, every entry point raises."""
+    from gtsam_points_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    (tmp_path / "points.bin").write_bytes(np.zeros(6, np.float32).tobytes())
+    pts = np.zeros((4, 3), np.float32)
+    for call in (native.available, lambda: native.read_floats(str(tmp_path / "points.bin")),
+                 lambda: native.HostKdTree(pts), lambda: native.voxelgrid_downsample(pts, 0.5)):
+        with pytest.raises(RuntimeError, match="compiler"):
+            call()
+    assert not (tmp_path / "native").exists() or not any((tmp_path / "native").iterdir())
 
 
 def test_float32_pins():

@@ -75,6 +75,19 @@ per-pose bounds of phases 21-22):
 As a test it registers the first init with GICP, holds the port's pose to
 the JAX pose and the JAX pose to the one chip_smoke.py keeps.
 
+Slice 16 (`--kitti07`, `--endurance N`): chip_smoke.py's phases 37-38.
+`--kitti07` runs examples/kitti07_slam.py's protocol
+(chip_smoke.kitti07_protocol) on KITTI-format files of the simulated drive
+at the example's size in both packages; `--endurance N` runs
+tests/test_endurance_1000.py's session cut to N poses
+(chip_smoke.endurance_protocol) in the JAX package, and with
+`--endurance-port` in the port beside it. Each prints the JAX constants
+chip_smoke.py keeps (KITTI_*, ENDURANCE_*), with `--kitti07-orders` and
+`--endurance-orders` the JAX poses' shift over other point orders:
+
+    JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --kitti07 --kitti07-orders 3
+    JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --endurance 250 --endurance-orders 3 --endurance-port
+
 Order shift: the port alone builds the target's pyramid from the same
 points in other orders, so only the order of the moment sums changes, and
 registers from the eight inits again. The largest pose shift (1.767e-3 m
@@ -1663,6 +1676,111 @@ def compare_parallel(n_orders: int) -> dict:
     return r
 
 
+def jax_kitti07_api() -> dict:
+    """chip_smoke.kitti07_protocol's names for the JAX package on the CPU,
+    jitted as examples/kitti07_slam.py jits them, and FPFH and each GICP
+    factor's hash grid jitted too (one program each in place of eager
+    dispatch; the same poses)."""
+    from gtsam_points_tpu.pipelines.odometry import OdometryParams, init_odometry, odometry_step
+    from gtsam_points_tpu.registration import GNCParams, estimate_fpfh, estimate_pose_gnc
+    from gtsam_points_tpu.utils import io
+    from gtsam_points_tpu.utils.profiling import EasyProfiler
+
+    preprocess = {}
+    grid = jax.jit(jgrid, static_argnums=2)
+
+    def pre(f, capacity):
+        if capacity not in preprocess:
+            preprocess[capacity] = jax.jit(lambda g: jfeatures(
+                jvoxelgrid(g, chip_smoke.KITTI_SAMPLE_LEAF, capacity=capacity), k=chip_smoke.KITTI_KNN_K,
+                grid_leaf=chip_smoke.KITTI_GRID_LEAF))
+        return preprocess[capacity](f)
+
+    return {
+        "io": io, "EasyProfiler": EasyProfiler, "pose_from_xyzq": jse3.pose_from_xyzq, "se3_exp": jse3.se3_exp,
+        "make_frame": lambda points, capacity: jmake(points, capacity=capacity), "preprocess": pre,
+        "OdometryParams": OdometryParams, "init_odometry": init_odometry, "odometry_step": odometry_step,
+        "estimate_fpfh": jax.jit(estimate_fpfh),
+        "gnc": lambda t, s, ft, fs: jax.jit(lambda: estimate_pose_gnc(t, s, ft, fs, GNCParams()))(),
+        "FactorGraph": JGraph, "PriorFactor": JPrior, "LMParams": JLMParams,
+        "make_gicp_factor": lambda i, j, target, source, max_corr_dist, grid_leaf: jgicp(
+            i, j, target, source, max_corr_dist=max_corr_dist, grid=grid(target.points, target.mask, grid_leaf)),
+        "optimize_lm": lambda g, p, params: jax.jit(lambda q: jlm(g, q, params))(p),
+        "arr": lambda x: jax.numpy.asarray(np.asarray(x, np.float32)), "host": np.asarray,
+    }
+
+
+def jax_endurance_api() -> dict:
+    """chip_smoke.endurance_protocol's names for the JAX package on the CPU,
+    the sharded insert jitted as tests/test_endurance_1000.py jits it, and
+    the map build and each VGICP factor's voxel map jitted too (one program
+    each, in place of eager dispatch)."""
+    from gtsam_points_tpu.optim.isam2 import ISAM2Ext
+    from gtsam_points_tpu.parallel import build_sharded_voxelmap, sharded_insert_frame
+    from gtsam_points_tpu.utils.memory import nbytes
+    from gtsam_points_tpu.utils.offload import OffloadPool
+
+    vmap = jax.jit(jbuild, static_argnums=1)
+    sharded = jax.jit(build_sharded_voxelmap, static_argnums=(1, 2, 3))
+    return {
+        "OffloadPool": OffloadPool, "nbytes": nbytes, "ISAM2Ext": ISAM2Ext, "LMParams": JLMParams,
+        "PriorFactor": JPrior,
+        "make_vgicp_factor": lambda i, j, target, source, voxel_resolution, min_voxel_points: jvgicp(
+            i, j, vmap(target, voxel_resolution), source, min_voxel_points=min_voxel_points),
+        "make_frame": lambda points, capacity: jmake(points, capacity=capacity),
+        "build_sharded_voxelmap": sharded,
+        "sharded_insert_frame": jax.jit(sharded_insert_frame),
+        "arr": lambda x: jax.numpy.asarray(np.asarray(x, np.float32)), "host": np.asarray, "kw": {},
+    }
+
+
+def _pose_shift(a, b) -> tuple:
+    """Per pose (m, rad) between two [P, 4, 4] numpy stacks."""
+    rot, trans = tse3.pose_error(torch.from_numpy(np.array(a, np.float32)), torch.from_numpy(np.array(b, np.float32)))
+    return trans.numpy(), rot.numpy()
+
+
+def compare_kitti07(n_orders: int, port: bool = True) -> dict:
+    """Phase 37's protocol on the drive's files at the example's size: the
+    JAX package's poses, odometry, GNC and truth errors, the port's on the
+    CPU beside them, and with `n_orders` the largest shift of each final JAX
+    pose over that many other point orders of the scans."""
+    import io as _io
+    import tempfile
+
+    drive = chip_smoke.kitti07_drive()
+    out = _io.StringIO()
+    with tempfile.TemporaryDirectory() as root:
+        chip_smoke.write_kitti07(root, drive)
+        j = chip_smoke.kitti07_protocol(jax_kitti07_api(), root, out=out)
+        t = chip_smoke.kitti07_protocol(chip_smoke.port_kitti07_api(torch, "cpu"), root, out=out) if port else None
+    r = {"jax": j, "torch": t, "shift_m": np.zeros(chip_smoke.KITTI_POSES),
+         "shift_rad": np.zeros(chip_smoke.KITTI_POSES)}
+    for k in range(n_orders):
+        with tempfile.TemporaryDirectory() as root:
+            chip_smoke.write_kitti07(root, drive, perm_seed=100 * (k + 1))
+            q = chip_smoke.kitti07_protocol(jax_kitti07_api(), root, out=out)
+        m, rad = _pose_shift(j["poses"], q["poses"])
+        r["shift_m"], r["shift_rad"] = np.maximum(r["shift_m"], m), np.maximum(r["shift_rad"], rad)
+    return r
+
+
+def compare_endurance(n_poses: int, n_orders: int, port: bool = False) -> dict:
+    """Phase 38's session on the JAX package at `n_poses` poses (every
+    ENDURANCE_SAMPLE-th pose, the ATE, the relaxes and spills), with
+    `port` the port's on the CPU beside it, and with `n_orders` the largest
+    shift of each sampled JAX pose over that many other point orders."""
+    j = chip_smoke.endurance_protocol(jax_endurance_api(), n_poses)
+    t = chip_smoke.endurance_protocol(chip_smoke.port_endurance_api(torch, "cpu"), n_poses) if port else None
+    sample = list(range(0, n_poses, chip_smoke.ENDURANCE_SAMPLE))
+    r = {"jax": j, "torch": t, "sample": sample, "shift_m": np.zeros(len(sample)), "shift_rad": np.zeros(len(sample))}
+    for k in range(n_orders):
+        q = chip_smoke.endurance_protocol(jax_endurance_api(), n_poses, perm_seed=100 * (k + 1))
+        m, rad = _pose_shift(j["est"][sample], q["est"][sample])
+        r["shift_m"], r["shift_rad"] = np.maximum(r["shift_m"], m), np.maximum(r["shift_rad"], rad)
+    return r
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=24, help="odometry steps (0: no odometry run)")
@@ -1735,6 +1853,16 @@ def main() -> int:
                              "package on 8 virtual CPU devices")
     parser.add_argument("--parallel-orders", type=int, default=0,
                         help="with --parallel: the JAX package again with the points in this many other orders")
+    parser.add_argument("--kitti07", action="store_true",
+                        help="phase 37's kitti07_slam protocol on the drive's files, both packages")
+    parser.add_argument("--kitti07-orders", type=int, default=0,
+                        help="with --kitti07: the JAX package again with each scan's points in this many orders")
+    parser.add_argument("--endurance", type=int, default=0,
+                        help="phase 38's endurance session cut to this many poses, the JAX package (0: none)")
+    parser.add_argument("--endurance-orders", type=int, default=0,
+                        help="with --endurance: the JAX package again with each scan's points in this many orders")
+    parser.add_argument("--endurance-port", action="store_true",
+                        help="with --endurance: the port on the CPU beside it")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -1938,6 +2066,37 @@ def main() -> int:
               "PAR_BATCH_ORDER_SHIFT_RAD = [" + ", ".join(f"{x:.3e}" for x in r["batch_shift_rad"]) + "]",
               flush=True)
         report.append({k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in r.items()})
+    if args.kitti07:
+        r = compare_kitti07(args.kitti07_orders)
+        j, t = r["jax"], r["torch"]
+        gap_m, gap_rad = _pose_shift(j["poses"], t["poses"])
+        print(f"kitti07: port against JAX {gap_m.max():.3e} m {gap_rad.max():.3e} rad; odometry iterations JAX "
+              f"{j['odo_iters']} port {t['odo_iters']}, graph JAX {j['graph_iters']} port {t['graph_iters']}; "
+              f"against the truth JAX {chip_smoke.kitti07_truth(j['T_gt'], j['poses'])} port "
+              f"{chip_smoke.kitti07_truth(t['T_gt'], t['poses'])}; GNC inlier rate JAX {j['lc_inlier']:.6f} port "
+              f"{t['lc_inlier']:.6f}", flush=True)
+        truth = chip_smoke.kitti07_truth(j["T_gt"], j["poses"])
+        print(f"KITTI_JAX_POSES = {_rows(j['poses'])}\nKITTI_JAX_ODO_ITERS = {j['odo_iters']}\n"
+              f"KITTI_JAX_GRAPH_ITERS = {j['graph_iters']}\nKITTI_JAX_INLIER = {j['lc_inlier']!r}\n"
+              f"KITTI_JAX_TRUTH = ({truth[0]:.6f}, {truth[1]:.6f})\n"
+              "KITTI_ORDER_SHIFT_M = [" + ", ".join(f"{x:.3e}" for x in r["shift_m"]) + "]\n"
+              "KITTI_ORDER_SHIFT_RAD = [" + ", ".join(f"{x:.3e}" for x in r["shift_rad"]) + "]", flush=True)
+        report.append({"gap_m": gap_m.tolist(), "gap_rad": gap_rad.tolist(), "shift_m": r["shift_m"].tolist()})
+    if args.endurance:
+        r = compare_endurance(args.endurance, args.endurance_orders, args.endurance_port)
+        j = r["jax"]
+        ate = chip_smoke.endurance_ate(j["T_true"], j["est"])
+        print(f"endurance {args.endurance} poses, closures {chip_smoke.ENDURANCE_LOOPS}: JAX ATE {ate[0]:.6f} rad {ate[1]:.6f} m, "
+              f"relaxes {j['relaxes']}, reloads {j['reloads']}, spilled {j['spilled']}, update ms median "
+              f"{np.median(j['update_ms']):.3f}", flush=True)
+        if r["torch"] is not None:
+            gap_m, gap_rad = _pose_shift(j["est"][r["sample"]], r["torch"]["est"][r["sample"]])
+            print(f"endurance: port against JAX {gap_m.max():.3e} m {gap_rad.max():.3e} rad (per sampled pose "
+                  f"{gap_m.tolist()})", flush=True)
+        print(f"ENDURANCE_JAX_POSES = {_rows(j['est'][r['sample']])}\nENDURANCE_JAX_ATE = ({ate[0]:.6f}, {ate[1]:.6f})\n"
+              "ENDURANCE_ORDER_SHIFT_M = [" + ", ".join(f"{x:.3e}" for x in r["shift_m"]) + "]\n"
+              "ENDURANCE_ORDER_SHIFT_RAD = [" + ", ".join(f"{x:.3e}" for x in r["shift_rad"]) + "]", flush=True)
+        report.append({"ate": ate, "shift_m": r["shift_m"].tolist()})
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
         print(odometry_order_summary(r), flush=True)
