@@ -4,7 +4,8 @@ The system has no weights: its state is the voxel map (whole, or sharded
 with a leading [S] axis), the frames, a
 scan's source clusters, a frame's hash grid, a pose graph's edges, a VGICP
 factor set and an incremental optimizer's marginal priors, IMU samples, a Sim(3), an
-occupancy grid and an incremental covariance map. These functions
+occupancy grid, an incremental covariance map and a B-spline trajectory's
+knots. These functions
 take the numpy arrays of a JAX `GaussianVoxelMap` (its seven fields), of a
 `Frame` (with its normals and covariances), of a `SourceClusters` (its four
 fields), of a `HashGrid` (its nine arrays and its coarse level), of a
@@ -12,9 +13,10 @@ fields), of a `HashGrid` (its nine arrays and its coarse level), of a
 its keys), of a `MarginalPriorFactor` and of the bundle-adjustment factors
 (an EVM factor's points and keys, an LSQ factor's moments), of
 `ImuMeasurements`, `Sim3`, `OccupancyGrid` (its bit words as uint32) and
-`IncrementalCovarianceMap` (with its `RunningStatistics`), and build the
-port's state from them bit for bit, so both packages can start from the
-same map, search the same grid or optimize the same graph. `isam2_to_numpy` snapshots either
+`IncrementalCovarianceMap` (with its `RunningStatistics`) and of a
+`ContinuousTrajectory`'s knots, and build the port's state from them bit
+for bit, so both packages can start from the same map, search the same
+grid, optimize the same graph or evaluate the same spline. `isam2_to_numpy` snapshots either
 package's `ISAM2Ext` so tests can hold the two against each other.
 """
 
@@ -38,6 +40,7 @@ from gtsam_points_tpu_torch.optim.incremental import MarginalPriorFactor
 from gtsam_points_tpu_torch.optim.sparse import PoseGraphEdges
 from gtsam_points_tpu_torch.registration.cluster import SourceClusters
 from gtsam_points_tpu_torch.types.frame import Frame
+from gtsam_points_tpu_torch.utils.bspline import ContinuousTrajectory
 from gtsam_points_tpu_torch.utils.stats import RunningStatistics
 
 _FRAME_FIELDS = ("points", "mask", "normals", "covs", "intensities", "times")
@@ -318,3 +321,10 @@ def incremental_covariance_map_to_numpy(cmap) -> dict:
     out = {k: _numpy(getattr(cmap, k)) for k in _ICM_DTYPES}
     out["eig_stats"] = {k: _numpy(getattr(cmap.eig_stats, k)) for k in _STATS_FIELDS}
     return out
+
+
+def trajectory_from_numpy(knots, t0: float, knot_interval: float, device: DeviceLike = None) -> ContinuousTrajectory:
+    """A B-spline trajectory on the given knots [K, 4, 4] (a JAX
+    `ContinuousTrajectory`'s `knots`), so both packages evaluate the same
+    spline apart from the fit."""
+    return ContinuousTrajectory(_tensor(knots, np.float32, resolve_device(device)), t0, knot_interval)

@@ -19,10 +19,14 @@ def _const(value: float, like: torch.Tensor) -> torch.Tensor:
     times or over a 0-d tensor gives a float64 tangent under
     `torch.func.jacfwd`; a 0-d tensor of the operand's dtype does not, and
     it enters a CUDA kernel as the same float argument as the python float,
-    so values are unchanged."""
+    so values are unchanged. It is made with functorch's dispatch off: a
+    tensor made inside a `torch.func` transform is wrapped at that
+    transform's level, and the cached wrapper, read under a later nested
+    `jvp`, fails functorch's level check."""
     key = (value, like.dtype)
     if key not in _CONSTS:
-        _CONSTS[key] = torch.tensor(value, dtype=like.dtype)
+        with torch._C._DisableFuncTorch():
+            _CONSTS[key] = torch.tensor(value, dtype=like.dtype)
     return _CONSTS[key]
 
 

@@ -41,6 +41,7 @@ from gtsam_points_tpu_torch.registration import (
 )
 from gtsam_points_tpu_torch.types.frame import make_frame
 from gtsam_points_tpu_torch.utils import profiling
+from gtsam_points_tpu_torch.utils.bspline import fit_knots
 from gtsam_points_tpu_torch.utils.io import load_frame_npz, save_frame_npz
 from gtsam_points_tpu_torch.utils.offload import OffloadPool
 from gtsam_points_tpu_torch.utils.stats import RunningStatistics
@@ -192,6 +193,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     with profiling.trace(str(tmp_path / "trace"), device="cpu"):
         torch.ones(2).sum()
     assert (tmp_path / "trace" / "trace.json").exists()
+    # the B-spline fit
+    stamps, poses = torch.arange(5) / 10.0, torch.eye(4).expand(5, 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit_knots(stamps, poses, 0.0, 0.4, 0.1)
+    assert fit_knots(stamps, poses, 0.0, 0.4, 0.1, iterations=1, device="cpu").knots.device.type == "cpu"
+    with pytest.raises(ValueError):
+        fit_knots(stamps, poses.to("meta"), 0.0, 0.4, 0.1, device="cpu")
 
 
 def test_native_loads_only_its_own_library():

@@ -88,6 +88,14 @@ chip_smoke.py keeps (KITTI_*, ENDURANCE_*), with `--kitti07-orders` and
     JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --kitti07 --kitti07-orders 3
     JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --endurance 250 --endurance-orders 3 --endurance-port
 
+Slice 17 (`--bspline`): chip_smoke.py's phase 39,
+examples/demo_continuous_trajectory.py's protocol on
+chip_smoke.continuous_drive() (238 s of poses at 10 Hz, knots 0.1 s apart,
+the IMU at 100 Hz inside the span) in both packages. It prints the JAX
+constants chip_smoke.py keeps (CONT_JAX_*) and the port's gaps on the CPU:
+
+    JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --bspline
+
 Order shift: the port alone builds the target's pyramid from the same
 points in other orders, so only the order of the moment sums changes, and
 registers from the eight inits again. The largest pose shift (1.767e-3 m
@@ -1765,6 +1773,58 @@ def compare_kitti07(n_orders: int, port: bool = True) -> dict:
     return r
 
 
+def compare_bspline() -> dict:
+    """Phase 39's protocol at the demo's size: the JAX package's fit, its
+    pose at every sample and IMU at every IMU stamp, with the times of each
+    (s, this CPU, JAX's compile included); the port's on the CPU beside it;
+    the largest gaps between the two over every knot, sample and IMU stamp;
+    how far JAX's own knots move when every input translation is scaled by
+    (1 + 2^-23); and how far both packages' knots lie from the port's fit
+    of the same inputs in float64."""
+    import jax.numpy as jnp
+
+    from gtsam_points_tpu.utils import bspline as jbs
+    from gtsam_points_tpu_torch.utils import bspline as tbs
+
+    d = chip_smoke.continuous_drive()
+    t0, t1, dt = float(d["stamps"][0]), float(d["stamps"][-1]), chip_smoke.CONT_KNOT_INTERVAL
+    r = {}
+    for name, package in (("jax", (jbs, jnp.asarray)), ("torch", (tbs, torch.from_numpy))):
+        mod, arr = package
+        t = time.perf_counter()
+        kw = {"device": "cpu"} if name == "torch" else {}
+        traj = mod.fit_knots(arr(d["stamps"]), arr(d["poses"]), t0=t0, t1=t1, knot_interval=dt, **kw)
+        knots = np.asarray(traj.knots)
+        t_fit = time.perf_counter() - t
+        t = time.perf_counter()
+        pred = np.asarray(traj.pose(arr(d["stamps"])))
+        t_pose = time.perf_counter() - t
+        t = time.perf_counter()
+        acc, gyro = traj.imu(arr(d["imu_stamps"]))
+        imu = np.concatenate([np.asarray(acc), np.asarray(gyro)], -1)
+        t_imu = time.perf_counter() - t
+        err_m, err_rad = _pose_shift(d["poses"], pred)
+        r[name] = {"knots": knots, "pred": pred, "imu": imu, "fit_error": (float(err_rad.max()), float(err_m.max())),
+                   "s": (t_fit, t_pose, t_imu), "imu_err": np.abs(imu - d["imu_truth"])}
+    # JAX's own fit with every input translation scaled by one float32 ulp
+    scaled = np.array(d["poses"])
+    scaled[:, :3, 3] *= np.float32(1 + 2**-23)
+    ulp = jbs.fit_knots(jnp.asarray(d["stamps"]), jnp.asarray(scaled), t0=t0, t1=t1, knot_interval=dt)
+    r["ulp_shift"] = [float(x.max()) for x in _pose_shift(r["jax"]["knots"], np.asarray(ulp.knots))]
+    # a float64 witness: the port's banded fit of the same inputs in float64
+    st, ps = torch.from_numpy(d["stamps"]).double(), torch.from_numpy(d["poses"]).double()
+    K = tbs.ContinuousTrajectory.num_knots(t0, t1, dt)
+    k64 = tbs._fit_knots_banded(st, ps, t0, dt, K, tbs._initial_knots(st, ps, t0, dt, K), 20, 1e-2)
+    for name in ("jax", "torch"):
+        rot, trans = tse3.pose_error(k64, torch.from_numpy(np.array(r[name]["knots"])).double())
+        r[f"{name}_f64"] = [float(trans.max()), float(rot.max())]
+    j, p = r["jax"], r["torch"]
+    r["gap_knots"] = [float(x.max()) for x in _pose_shift(j["knots"], p["knots"])]
+    r["gap_poses"] = [float(x.max()) for x in _pose_shift(j["pred"], p["pred"])]
+    r["gap_imu"] = [float(np.abs(j["imu"] - p["imu"])[:, k].max()) for k in (slice(0, 3), slice(3, 6))]
+    return r
+
+
 def compare_endurance(n_poses: int, n_orders: int, port: bool = False) -> dict:
     """Phase 38's session on the JAX package at `n_poses` poses (every
     ENDURANCE_SAMPLE-th pose, the ATE, the relaxes and spills), with
@@ -1863,6 +1923,8 @@ def main() -> int:
                         help="with --endurance: the JAX package again with each scan's points in this many orders")
     parser.add_argument("--endurance-port", action="store_true",
                         help="with --endurance: the port on the CPU beside it")
+    parser.add_argument("--bspline", action="store_true",
+                        help="phase 39's demo_continuous_trajectory protocol at the demo's size, both packages")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -2097,6 +2159,25 @@ def main() -> int:
               "ENDURANCE_ORDER_SHIFT_M = [" + ", ".join(f"{x:.3e}" for x in r["shift_m"]) + "]\n"
               "ENDURANCE_ORDER_SHIFT_RAD = [" + ", ".join(f"{x:.3e}" for x in r["shift_rad"]) + "]", flush=True)
         report.append({"ate": ate, "shift_m": r["shift_m"].tolist()})
+    if args.bspline:
+        r = compare_bspline()
+        j, p = r["jax"], r["torch"]
+        for name in ("jax", "torch"):
+            e = r[name]["imu_err"]
+            print(f"bspline {name}: fit, pose, imu {[round(x, 3) for x in r[name]['s']]} s; K {len(r[name]['knots'])}; "
+                  f"fit error {r[name]['fit_error']} (rad, m); IMU against the walk's acc p50 "
+                  f"{np.median(e[:, :3]):.4f} p99 {np.quantile(e[:, :3], 0.99):.4f} m/s^2, gyro p50 "
+                  f"{np.median(e[:, 3:]):.5f} p99 {np.quantile(e[:, 3:], 0.99):.5f} rad/s", flush=True)
+        print(f"bspline: port against JAX knots {r['gap_knots']} (m, rad), fitted poses {r['gap_poses']}, IMU "
+              f"{r['gap_imu']} (acc m/s^2, gyro rad/s); JAX's knots moved {r['ulp_shift']} (m, rad) by one ulp of "
+              f"every input translation; from the port's float64 fit: JAX's knots {r['jax_f64']}, the port's "
+              f"{r['torch_f64']} (m, rad)", flush=True)
+        k, n = chip_smoke.CONT_SAMPLE, chip_smoke.CONT_IMU_SAMPLE
+        print(f"CONT_JAX_KNOTS = {_rows(j['knots'][::k])}\nCONT_JAX_POSES = {_rows(j['pred'][::k])}\n"
+              "CONT_JAX_IMU = [" + ", ".join("[" + ", ".join(np.format_float_positional(np.float32(x), unique=True)
+                                                            for x in row) + "]" for row in j["imu"][::n]) + "]\n"
+              f"CONT_JAX_FIT_ERROR = ({j['fit_error'][0]!r}, {j['fit_error'][1]!r})", flush=True)
+        report.append({k: r[k] for k in ("gap_knots", "gap_poses", "gap_imu", "ulp_shift", "jax_f64", "torch_f64")})
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
         print(odometry_order_summary(r), flush=True)
