@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -28,3 +29,12 @@ def check_on(device: torch.device, *tensors: Optional[torch.Tensor]) -> None:
     for t in tensors:
         if t is not None and t.device.type != device.type:
             raise ValueError(f"tensor on {t.device}, expected {device}")
+
+
+def float32_on(x, device: torch.device) -> torch.Tensor:
+    """`x` as a float32 tensor on `device`: numbers and numpy arrays are
+    copied there; a tensor must already lie there."""
+    if isinstance(x, torch.Tensor):
+        check_on(device, x)
+        return x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)

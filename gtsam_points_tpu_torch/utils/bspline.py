@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gtsam_points_tpu_torch._device import DeviceLike, check_on, resolve_device
+from gtsam_points_tpu_torch._device import DeviceLike, float32_on, resolve_device
 from gtsam_points_tpu_torch.ops.voxelmap import scatter_sum
 from gtsam_points_tpu_torch.utils import se3
 
@@ -50,15 +50,6 @@ def _device_const(values: tuple, like: torch.Tensor) -> torch.Tensor:
                      for v in np.ravel(np.asarray(values, np.float64))]
             _DEVICE_CONSTS[key] = torch.cat(parts).reshape(np.shape(values))
     return _DEVICE_CONSTS[key]
-
-
-def _input(x, dev: torch.device) -> torch.Tensor:
-    """Stamps or poses as a float32 tensor on `dev`: numbers and numpy arrays
-    are copied there; a tensor must already lie there."""
-    if isinstance(x, torch.Tensor):
-        check_on(dev, x)
-        return x.to(torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
 
 def _basis(u: torch.Tensor) -> torch.Tensor:
@@ -102,11 +93,11 @@ class ContinuousTrajectory:
         return int(np.ceil(np.float32((t1 - t0) / knot_interval))) + 3
 
     def knot_stamp(self, i) -> torch.Tensor:
-        i = _input(i, self.knots.device)
+        i = float32_on(i, self.knots.device)
         return se3._const(self.t0, i) + (i - se3._const(1.0, i)) * se3._const(self.dt, i)
 
     def _locate(self, t: torch.Tensor):
-        t = _input(t, self.knots.device)
+        t = float32_on(t, self.knots.device)
         s = (t - se3._const(self.t0, t)) / se3._const(self.dt, t)
         # floor(s) carries no tangent; u carries 1/dt of t's
         i = torch.clamp(torch.floor(s).to(torch.int32) + 1, 1, self.knots.shape[0] - 3)
@@ -119,7 +110,7 @@ class ContinuousTrajectory:
 
     def velocity(self, t):
         """(angular [3], linear [3]) world-frame velocities by AD through time."""
-        t = _input(t, self.knots.device)
+        t = float32_on(t, self.knots.device)
         T, dT = torch.func.jvp(self.pose, (t,), (torch.ones_like(t),))
         R = T[..., :3, :3]
         w_hat = dT[..., :3, :3] @ R.transpose(-1, -2)
@@ -134,7 +125,7 @@ class ContinuousTrajectory:
             _, dT = torch.func.jvp(self.pose, (tt,), (torch.ones_like(tt),))
             return dT[..., :3, 3]
 
-        t = _input(t, self.knots.device)
+        t = float32_on(t, self.knots.device)
         a_world = torch.func.jvp(vel, (t,), (torch.ones_like(t),))[1]
         T = self.pose(t)
         R = T[..., :3, :3]
@@ -166,7 +157,7 @@ def fit_knots(
     matvec. `device=None` means cuda; stamps and poses given as tensors must
     lie on that device."""
     dev = resolve_device(device)
-    stamps, poses = _input(stamps, dev), _input(poses, dev)
+    stamps, poses = float32_on(stamps, dev), float32_on(poses, dev)
     K = ContinuousTrajectory.num_knots(t0, t1, knot_interval)
     knots0 = _initial_knots(stamps, poses, t0, knot_interval, K)
     if K > dense_knot_threshold:

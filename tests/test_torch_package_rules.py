@@ -18,6 +18,7 @@ import gtsam_points_tpu_torch
 from gtsam_points_tpu_torch.factors import (
     PriorFactor,
     make_evm_factor,
+    make_gicp_factor,
     make_imu_measurements,
     make_lsq_ba_factor,
     sim3_identity,
@@ -43,7 +44,9 @@ from gtsam_points_tpu_torch.types.frame import make_frame
 from gtsam_points_tpu_torch.utils import profiling
 from gtsam_points_tpu_torch.utils.bspline import fit_knots
 from gtsam_points_tpu_torch.utils.io import load_frame_npz, save_frame_npz
+from gtsam_points_tpu_torch.utils.jacobian_test import check_factor_jacobian, numeric_gradient
 from gtsam_points_tpu_torch.utils.offload import OffloadPool
+from gtsam_points_tpu_torch.utils.raycast import raycast_voxels
 from gtsam_points_tpu_torch.utils.stats import RunningStatistics
 
 torch.set_num_threads(1)
@@ -200,6 +203,37 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     assert fit_knots(stamps, poses, 0.0, 0.4, 0.1, iterations=1, device="cpu").knots.device.type == "cpu"
     with pytest.raises(ValueError):
         fit_knots(stamps, poses.to("meta"), 0.0, 0.4, 0.1, device="cpu")
+    # the raycaster and the Jacobian check's numeric gradient
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        raycast_voxels([[0.0, 0.0, 0.0]], [[1.0, 1.0, 1.0]], 0.5, 8)
+    coords, valid = raycast_voxels([[0.0, 0.0, 0.0]], [[1.0, 1.0, 1.0]], 0.5, 8, device="cpu")
+    assert coords.device.type == "cpu" and int(valid.sum()) == 6
+    with pytest.raises(ValueError):
+        raycast_voxels(torch.zeros(1, 3, device="meta"), torch.ones(1, 3, device="meta"), 0.5, 8, device="cpu")
+    eye2 = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        numeric_gradient(lambda p: p.sum(), eye2, 1)
+    assert numeric_gradient(lambda p: p.sum(), eye2, 1, device="cpu").shape == (6,)
+    with pytest.raises(ValueError):
+        numeric_gradient(lambda p: p.sum(), torch.from_numpy(eye2).to("meta"), 1, device="cpu")
+    # check_factor_jacobian has no device of its own: it runs on its factor's (a CPU factor here, as no
+    # CUDA factor can be made without CUDA) and refuses poses on another device
+    gframe = make_frame(pts, covs=np.tile(np.eye(3, dtype=np.float32), (64, 1, 1)), device="cpu")
+    gicp = make_gicp_factor(0, 1, gframe, gframe, max_corr_dist=1.0)
+    assert set(check_factor_jacobian(gicp, eye2)) == {"source", "target"}
+    with pytest.raises(ValueError):
+        check_factor_jacobian(gicp, torch.from_numpy(eye2).to("meta"))
+
+
+def test_every_module_has_a_counterpart():
+    """Every module of the JAX package has a file at the same path in the
+    port (the TPU kernels of ops/pallas_linearize.py are ops/fused_linearize.py's):
+    the port does all that the JAX package does."""
+    jax_package = REPO / "gtsam_points_tpu"
+    renamed = {"ops/pallas_linearize.py": "ops/fused_linearize.py"}
+    modules = [p.relative_to(jax_package).as_posix() for p in sorted(jax_package.rglob("*.py"))]
+    assert len(modules) >= 60 and "utils/raycast.py" in modules and "utils/jacobian_test.py" in modules
+    assert [m for m in modules if not (PKG / renamed.get(m, m)).is_file()] == []
 
 
 def test_native_loads_only_its_own_library():

@@ -96,6 +96,21 @@ constants chip_smoke.py keeps (CONT_JAX_*) and the port's gaps on the CPU:
 
     JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --bspline
 
+Slice 18 (`--raycast`, `--jacobian`): chip_smoke.py's phases 40-41.
+`--raycast` runs the voxel raycaster of both packages on phase 40's rays
+(the 127639 rays of phase 37's first sweep, and the lattice rays) and
+prints the digests chip_smoke.py keeps (RAYCAST_*); `--jacobian` runs the
+JAX package's check_factor_jacobian on phase 41's demo GICP factor at the
+truth pose, on frames with chip_smoke.plain_covariances, and the port's on
+the CPU beside it, prints JACOBIAN_JAX, then, on each package's own kNN
+features, where the two part and JAX's check at the truth, at the demo's
+start and halfway between (about 1.5 min):
+
+    JAX_PLATFORMS=cpu python3 tests/test_torch_real_size.py --steps 0 --inits 0 --orders 0 --raycast --jacobian
+
+As a test it runs the whole sweep through both packages, holds them bit
+for bit and holds JAX's digests to the ones chip_smoke.py keeps.
+
 Order shift: the port alone builds the target's pyramid from the same
 points in other orders, so only the order of the moment sums changes, and
 registers from the eight inits again. The largest pose shift (1.767e-3 m
@@ -1615,6 +1630,19 @@ def test_real_size_first_steps_match_jax():
     assert r["map_keys_equal"] and r["voxels_jax"] == r["voxels_torch"] > 0
 
 
+def test_real_size_raycast_matches_jax():
+    """Phase 40's rays, the whole sweep and the lattice rays: the port's
+    coords and valid equal JAX's bit for bit, and JAX's digests, valid
+    steps and input digest equal the ones chip_smoke.py keeps."""
+    torch.set_num_threads(1)
+    r = compare_raycast()
+    assert r["sweep"]["rays"] == 127639 and r["sweep"]["input"] == chip_smoke.RAYCAST_INPUT_SHA256
+    assert r["sweep"]["equal"] and r["lattice"]["equal"]
+    assert r["sweep"]["digests"][:2] == [chip_smoke.RAYCAST_JAX_COORDS_SHA256, chip_smoke.RAYCAST_JAX_VALID_SHA256]
+    assert r["sweep"]["steps"] == chip_smoke.RAYCAST_JAX_VALID_STEPS and r["sweep"]["unfinished"] == 0
+    assert r["lattice"]["digests"][2] == chip_smoke.RAYCAST_LATTICE_JAX_SHA256 and r["lattice"]["unfinished"] == 0
+
+
 def _parallel_demo_jax(d: dict, perm_seed=None) -> tuple:
     """Phase 36's distributed_mapping demo on the JAX package, 8 shards on
     8 devices, from the drive's demo scans `d` (chip_smoke.parallel_street);
@@ -1825,6 +1853,109 @@ def compare_bspline() -> dict:
     return r
 
 
+def compare_raycast() -> dict:
+    """Phase 40's rays through both packages' raycast_voxels on the CPU, the
+    sweep and the lattice rays: JAX's digests (chip_smoke._digest, the
+    sweep's coords and valid apart, the lattice's together), its valid
+    steps and rays still emitting at the last step, the digest of the
+    sweep's rays, whether the port's output equals JAX's bit for bit, and
+    each package's seconds."""
+    import jax.numpy as jnp
+
+    from gtsam_points_tpu.utils.raycast import raycast_voxels as jray
+    from gtsam_points_tpu_torch.utils.raycast import raycast_voxels as tray
+
+    r = {}
+    for name, rays, steps in (("sweep", chip_smoke.raycast_sweep(), chip_smoke.RAYCAST_STEPS),
+                              ("lattice", chip_smoke.lattice_rays(), chip_smoke.LATTICE_STEPS)):
+        t = time.perf_counter()
+        jc, jv = (np.array(a) for a in jray(jnp.asarray(rays["origins"]), jnp.asarray(rays["targets"]),
+                                               chip_smoke.RAYCAST_LEAF, steps))
+        t_jax = time.perf_counter() - t
+        t = time.perf_counter()
+        tc, tv = tray(rays["origins"], rays["targets"], chip_smoke.RAYCAST_LEAF, steps, device="cpu")
+        t_torch = time.perf_counter() - t
+        out = [torch.from_numpy(jc), torch.from_numpy(jv)]
+        r[name] = {"digests": [chip_smoke._digest(out[:1]), chip_smoke._digest(out[1:]), chip_smoke._digest(out)],
+                   "input": chip_smoke._digest([torch.from_numpy(rays[k]) for k in ("origins", "targets")]),
+                   "equal": bool(np.array_equal(jc, tc.numpy()) and np.array_equal(jv, tv.numpy())),
+                   "rays": len(jc), "steps": int(jv.sum()), "unfinished": int(jv[:, -1].sum()), "s": (t_jax, t_torch)}
+    return r
+
+
+def _jacobian_factors(d: dict, covs: dict):
+    """The demo's GICP factor in both packages on the same frames: the
+    scans of `d` with the covariances `covs` ({"target", "source"})."""
+    def frames(make, **kw):
+        return [make(d[k], covs=covs[k], **kw) for k in ("target", "source")]
+
+    return (jgicp(0, 1, *frames(jmake), max_corr_dist=chip_smoke.JACOBIAN_MAX_CORR),
+            tgicp(0, 1, *frames(tmake, device="cpu"), max_corr_dist=chip_smoke.JACOBIAN_MAX_CORR))
+
+
+def compare_jacobian() -> dict:
+    """Phase 41's demo on the CPU. JAX's check_factor_jacobian of GICP at
+    the truth pose on frames with chip_smoke.plain_covariances (its -2 b,
+    numeric gradients and error, the constants) and the port's on the same
+    frames beside it (-2 b over max|ref|, the numeric gradients in
+    quanta); then, on JAX's own estimate_normals_covs(k=10, grid_leaf=1.0),
+    its -2 b at the truth (constants too), the port's own features beside
+    it (the share of points whose smallest two eigenvalues lie within 1e-2
+    of the largest, the share whose covariances part by more than 1e-4,
+    the port's -2 b against JAX's), and JAX's check at the truth, the start
+    (delta Exp(PAR_DEMO_XI)) and halfway between: passed, or the mismatch
+    it raised."""
+    from gtsam_points_tpu.utils.jacobian_test import check_factor_jacobian as jcheck
+    from gtsam_points_tpu_torch.utils.jacobian_test import check_factor_jacobian as tcheck
+
+    d = chip_smoke.street_demo(*chip_smoke.street_draws())
+    truth = np.stack([np.eye(4, dtype=np.float32), d["delta"]])
+    jf, tf = _jacobian_factors(d, {k: chip_smoke.plain_covariances(d[k]) for k in ("target", "source")})
+    t = time.perf_counter()
+    jg = jcheck(jf, truth)
+    t_jax = time.perf_counter() - t
+    t = time.perf_counter()
+    tg = tcheck(tf, truth)
+    t_torch = time.perf_counter() - t
+    jl, tl = jf.linearize(jax.numpy.asarray(truth)), tf.linearize(torch.from_numpy(truth))
+    ref = {"error": float(jl.error), **{f"b_{k}": -2.0 * np.asarray(getattr(jl, f"b_{k[0]}"), np.float64)
+                                         for k in ("source", "target")},
+           **{f"g_{k}": jg[k] for k in jg}}
+    quantum = chip_smoke.gradient_quantum(max(float(jl.error), float(tl.error)))
+    r = {"jax": ref, "s": (t_jax, t_torch), "quantum": quantum, "error_torch": float(tl.error),
+         "b_gap": chip_smoke._gap(chip_smoke._minus_2b(tl), ref, "b_"),
+         "g_quanta": max(float(np.abs(tg[k] - jg[k]).max()) for k in jg) / quantum, "own": {}}
+    own = [jfeatures(jmake(d[k]), k=chip_smoke.JACOBIAN_K, grid_leaf=1.0) for k in ("target", "source")]
+    jf_own = jgicp(0, 1, *own, max_corr_dist=chip_smoke.JACOBIAN_MAX_CORR)
+    own_lin = jf_own.linearize(jax.numpy.asarray(truth))
+    ref.update({f"own_b_{k}": -2.0 * np.asarray(getattr(own_lin, f"b_{k[0]}"), np.float64) for k in ("source", "target")})
+    # the port's own kNN features beside JAX's: where their covariances part, and what that does to -2 b
+    t_own, r["near_ties"], r["covs_differ"] = [], [], []
+    for k, jframe in zip(("target", "source"), own):
+        n = len(d[k])
+        t_own.append(tfeatures(tmake(d[k], device="cpu"), k=chip_smoke.JACOBIAN_K, grid_leaf=1.0))
+        raw = tfeatures(tmake(d[k], device="cpu"), k=chip_smoke.JACOBIAN_K, grid_leaf=1.0, regularization="none")
+        w = np.linalg.eigvalsh(raw.covs.numpy()[:n].astype(np.float64))
+        r["near_ties"].append(float(np.mean((w[:, 1] - w[:, 0]) / w[:, 2] < 1e-2)))
+        gap = np.abs(np.asarray(jframe.covs)[:n] - t_own[-1].covs.numpy()[:n]).reshape(n, -1).max(1)
+        r["covs_differ"].append(float(np.mean(gap > 1e-4)))
+    tb_own = chip_smoke._minus_2b(tgicp(0, 1, *t_own, max_corr_dist=chip_smoke.JACOBIAN_MAX_CORR).linearize(
+        torch.from_numpy(truth)))
+    r["own_b_gap"] = chip_smoke._gap(tb_own, ref, "own_b_")
+    r["own_b_component"] = max(float(np.max(np.abs(tb_own[k] - ref[f"own_b_{k}"]) / np.abs(ref[f"own_b_{k}"])))
+                               for k in tb_own)
+    half = (d["delta"] @ chip_smoke.se3_exp_np(0.5 * np.asarray(chip_smoke.PAR_DEMO_XI, np.float32))).astype(np.float32)
+    for name, T in (("truth", d["delta"]), ("halfway", half), ("start", d["start"])):
+        poses = np.stack([np.eye(4, dtype=np.float32), T])
+        try:
+            jcheck(jf_own, poses)
+            r["own"][name] = "passed"
+        except AssertionError as e:
+            r["own"][name] = " ".join(str(e).split())
+        r["own"][name] += f"; E {float(jf_own.error(jax.numpy.asarray(poses)))!r}"
+    return r
+
+
 def compare_endurance(n_poses: int, n_orders: int, port: bool = False) -> dict:
     """Phase 38's session on the JAX package at `n_poses` poses (every
     ENDURANCE_SAMPLE-th pose, the ATE, the relaxes and spills), with
@@ -1925,6 +2056,9 @@ def main() -> int:
                         help="with --endurance: the port on the CPU beside it")
     parser.add_argument("--bspline", action="store_true",
                         help="phase 39's demo_continuous_trajectory protocol at the demo's size, both packages")
+    parser.add_argument("--raycast", action="store_true", help="phase 40's rays, both packages' raycast_voxels")
+    parser.add_argument("--jacobian", action="store_true",
+                        help="phase 41's demo GICP factor, both packages' check_factor_jacobian")
     parser.add_argument("--out", help="write the report as JSON here")
     args = parser.parse_args()
     torch.set_num_threads(4)
@@ -2178,6 +2312,32 @@ def main() -> int:
                                                             for x in row) + "]" for row in j["imu"][::n]) + "]\n"
               f"CONT_JAX_FIT_ERROR = ({j['fit_error'][0]!r}, {j['fit_error'][1]!r})", flush=True)
         report.append({k: r[k] for k in ("gap_knots", "gap_poses", "gap_imu", "ulp_shift", "jax_f64", "torch_f64")})
+    if args.raycast:
+        r = compare_raycast()
+        for name, x in r.items():
+            print(f"raycast {name}: {x['rays']} rays, JAX {x['s'][0]:.2f} s, the port {x['s'][1]:.2f} s, equal bit for bit "
+                  f"{x['equal']}; valid steps {x['steps']}, still emitting at the last step {x['unfinished']}", flush=True)
+        print(f"RAYCAST_INPUT_SHA256 = {r['sweep']['input']!r}\nRAYCAST_JAX_COORDS_SHA256 = {r['sweep']['digests'][0]!r}\n"
+              f"RAYCAST_JAX_VALID_SHA256 = {r['sweep']['digests'][1]!r}\nRAYCAST_JAX_VALID_STEPS = {r['sweep']['steps']}\n"
+              f"RAYCAST_LATTICE_JAX_SHA256 = {r['lattice']['digests'][2]!r}", flush=True)
+        report.append(r)
+    if args.jacobian:
+        r = compare_jacobian()
+        print(f"jacobian demo at the truth: JAX {r['s'][0]:.2f} s, the port {r['s'][1]:.2f} s; E JAX {r['jax']['error']!r} "
+              f"the port {r['error_torch']!r}; the port's -2 b against JAX's {r['b_gap']:.3e} x max|ref|, numeric "
+              f"gradients {r['g_quanta']:.1f} quanta of {r['quantum']!r}", flush=True)
+        print(f"jacobian kNN features (k = {chip_smoke.JACOBIAN_K}) of the target and the source: the smallest two "
+              f"eigenvalues within 1e-2 of the largest at {r['near_ties']} of the points, the two packages' "
+              f"covariances more than 1e-4 apart at {r['covs_differ']}; on each package's own features the port's -2 b "
+              f"at the truth lies {r['own_b_gap']:.3e} x max|ref| from JAX's, {r['own_b_component']:.3e} of one "
+              f"component at most", flush=True)
+        for name, text in r["own"].items():
+            print(f"jacobian JAX on its own kNN features at the {name}: {text}", flush=True)
+        print("JACOBIAN_JAX = {" + ", ".join(
+            f"{k!r}: {v!r}" if k == "error" else f"{k!r}: [" + ", ".join(repr(float(x)) for x in v) + "]"
+            for k, v in r["jax"].items()) + "}", flush=True)
+        report.append({k: r[k] for k in ("b_gap", "g_quanta", "quantum", "own", "near_ties", "covs_differ", "own_b_gap",
+                                         "own_b_component")})
     if args.odometry_orders:
         r = odometry_order_shift(args.steps, args.odometry_orders)
         print(odometry_order_summary(r), flush=True)
